@@ -1,0 +1,21 @@
+from bevy_raytrace_tpu_torch.scenes.registry import MaterialRegistry
+from bevy_raytrace_tpu_torch.scenes.builders import (
+    baseline_config1_scene,
+    baseline_config1_camera,
+    baseline_config2_scene,
+    baseline_config2_camera,
+    rtiow_final_scene,
+    rtiow_final_camera,
+    reference_scene,
+)
+
+__all__ = [
+    "MaterialRegistry",
+    "baseline_config1_scene",
+    "baseline_config1_camera",
+    "baseline_config2_scene",
+    "baseline_config2_camera",
+    "rtiow_final_scene",
+    "rtiow_final_camera",
+    "reference_scene",
+]

@@ -1,0 +1,129 @@
+"""Renderer session object: the frame-loop layer.
+
+Mirror of `bevy_raytrace_tpu/wavefront/engine.py` for the port's two
+backends.  `Renderer` auto-advances the frame counter (RNG decorrelation),
+accepts a new scene/camera every frame, and for the "cuda" backend keeps the
+cost-balanced lane permutation between frames.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import threading
+import time
+from typing import Optional
+
+import torch
+
+from bevy_raytrace_tpu_torch.config import RenderConfig
+from bevy_raytrace_tpu_torch.utils.metrics import FrameTimer, synchronize
+
+# Samples of the probe pass that measures the cost map (they count).
+PROBE_SPP = 16
+
+
+class Renderer:
+    """A reusable render session.
+
+    Args:
+      config: render configuration.
+      backend: "torch" (the wavefront, any device) or "cuda" (the K1 kernel
+        with cost-balanced scheduling; needs a CUDA device and raises on any
+        other).
+      device: where scenes, cameras and images live.
+      replan_interval: "cuda" backend only.  0 keeps the cost-map
+        permutation until `replan()`; N > 0 re-probes every N frames, so the
+        schedule tracks camera and scene motion.  The image never depends on
+        the permutation, only the speed does.
+    """
+
+    def __init__(self, config: RenderConfig, backend: str = "torch",
+                 device="cpu", replan_interval: int = 0):
+        self.config = config
+        self.backend = backend
+        self.device = torch.device(device)
+        self.frame = 0
+        self.ready = False
+        self.replan_interval = replan_interval
+        self._warmup_lock = threading.Lock()
+        self._warmup_future = None
+
+        if backend == "torch":
+            from bevy_raytrace_tpu_torch.wavefront.render import render
+
+            self._step = render
+        elif backend == "cuda":
+            if self.device.type != "cuda":
+                raise ValueError(
+                    f'backend="cuda" needs a CUDA device, got {self.device}')
+            self._perm = None
+            self._perm_pixels = None  # resolution the cached perm is for
+            self._frames_on_perm = 0
+            self._step = self._cuda_step
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
+
+    def _cuda_step(self, scene, camera, config, frame):
+        from bevy_raytrace_tpu_torch.kernels.render_lanes import (
+            render_mxu,
+            render_probed,
+        )
+
+        # A perm is valid only for the resolution it was probed at, and an
+        # aged one re-probes when replan_interval is set.
+        if self._perm_pixels != config.num_pixels or (
+                self.replan_interval > 0
+                and self._frames_on_perm >= self.replan_interval):
+            self._perm = None
+        if self._perm is not None:
+            self._frames_on_perm += 1
+            return render_mxu(scene, camera, config, frame, perm=self._perm)
+        img, self._perm = render_probed(scene, camera, config, frame,
+                                        PROBE_SPP)
+        self._perm_pixels = config.num_pixels
+        self._frames_on_perm = 1
+        return img
+
+    def replan(self):
+        """Drop the cached permutation; the next frame re-probes."""
+        if self.backend == "cuda":
+            self._perm = None
+            self._perm_pixels = None
+
+    def warmup(self, scene, camera):
+        """Render frame 0 once (builds the kernel on first use); returns the
+        seconds it took.  The frame counter does not advance."""
+        t0 = time.perf_counter()
+        synchronize(self._step(scene, camera, self.config, 0))
+        self.ready = True
+        return time.perf_counter() - t0
+
+    def warmup_async(self, scene, camera):
+        """`warmup` on a daemon thread -> a Future of its seconds.  A call
+        while one is pending returns the pending future."""
+        with self._warmup_lock:
+            pending = self._warmup_future
+            if pending is not None and not pending.done():
+                return pending
+            fut = concurrent.futures.Future()
+            self._warmup_future = fut
+
+        def run():
+            try:
+                fut.set_result(self.warmup(scene, camera))
+            except Exception as e:  # noqa: BLE001 — routed to the future
+                fut.set_exception(e)
+
+        threading.Thread(target=run, daemon=True, name="brt-warmup").start()
+        return fut
+
+    def render_frame(self, scene, camera, timer: Optional[FrameTimer] = None):
+        """Render the next frame (the frame counter auto-advances)."""
+        if timer is not None:
+            img, _ = timer.time_frame(self._step, scene, camera, self.config,
+                                      self.frame)
+        else:
+            img = self._step(scene, camera, self.config, self.frame)
+        self.frame += 1
+        self.ready = True
+        return img

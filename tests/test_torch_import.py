@@ -1,0 +1,40 @@
+"""The PyTorch port imports without JAX, on a CPU-only torch."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(2)
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "bevy_raytrace_tpu_torch"
+
+
+def test_import_does_not_load_jax():
+    """Importing the package and every module in it leaves JAX unloaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import bevy_raytrace_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith("
+        "('jax.', 'bevy_raytrace_tpu.')) or k == 'bevy_raytrace_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_module_imports_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax\b|import bevy_raytrace_tpu\b"
+                         r"(?!_torch)|from bevy_raytrace_tpu\b(?!_torch))",
+                         re.M)
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 15
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders
