@@ -8,7 +8,9 @@ and numpy; CUDA kernels are built with nvcc on their first use.
 Public API:
     RenderConfig, Camera, Scene, Materials, Ray, MaterialRegistry, render
     scenes.*  (scene builders), wavefront.Renderer (sessions),
-    kernels.render_lanes (the K1 kernel and its host side)
+    kernels.render_lanes (the K1 kernel and its host side),
+    inverse.*  (render_loss, make_fast_renderer, InverseProblem, optimize:
+    inverse rendering through the K2 and K3 kernels)
 """
 
 from bevy_raytrace_tpu_torch.config import RenderConfig

@@ -28,10 +28,9 @@ class RenderConfig:
         [rays, spheres] intersection workspace.  0 = whole wavefront.
       spp_chunk: samples traced per wavefront step (spp must divide by it).
       t_min / t_max: valid hit interval.
-      edge_softness: soft-silhouette gradient width of the reference's
-        differentiable path.  The port is forward-only so far; the field is
-        kept so configs stay interchangeable, and pixel values never depend
-        on it.
+      edge_softness: soft-silhouette gradient width (0 = off) of the
+        differentiable renderers.  It changes gradients only: pixel values
+        never depend on it.
     """
 
     width: int = 400

@@ -1,14 +1,16 @@
-"""Carry scenes and cameras across from the JAX package as plain arrays.
+"""Carry scenes, cameras, inverse-problem parameters and recorded residuals
+across from the JAX package as plain arrays.
 
 The two packages share no objects; what one builds reaches the other as
-numpy arrays, so tests can feed both exactly the same scene and camera.
-Nothing here imports JAX: the `*_from_reference` helpers read the JAX
-objects' fields through `np.asarray`.
+numpy arrays, so tests can feed both exactly the same inputs.  Nothing here
+imports JAX: the `*_from_reference` helpers read the JAX objects' fields
+through `np.asarray`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from bevy_raytrace_tpu_torch.core.camera import Camera
 from bevy_raytrace_tpu_torch.core.types import Scene, make_scene
@@ -49,3 +51,25 @@ def scene_from_reference(scene, device="cpu") -> Scene:
 def camera_from_reference(camera, device="cpu") -> Camera:
     """A `bevy_raytrace_tpu` Camera -> the same Camera here (via pack())."""
     return Camera.from_packed(np.asarray(camera.pack()), device=device)
+
+
+def params_from_reference(params, device="cpu"):
+    """An `InverseProblem` parameter dict of the JAX package ({name: array})
+    -> {name: float32 tensor on `device`}."""
+    return {n: torch.tensor(np.array(v, np.float32), device=device)
+            for n, v in params.items()}
+
+
+def params_to_arrays(params):
+    """{name: tensor} -> {name: numpy array}, for either package."""
+    return {n: t.detach().cpu().numpy() for n, t in params.items()}
+
+
+def residuals_from_reference(res, num_pixels: int, device="cpu"):
+    """Residuals of the JAX recorders (int16/int32 [spp, depth, P >=
+    num_pixels]) -> an int tensor [spp, depth, num_pixels] on `device`."""
+    r = np.array(res)
+    if r.dtype not in (np.int16, np.int32):
+        raise TypeError(f"residuals must be int16 or int32, got {r.dtype}")
+    return torch.from_numpy(
+        np.ascontiguousarray(r[:, :, :num_pixels])).to(device)

@@ -23,6 +23,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Per-library additions.  K3 replays paths bit for bit like its plain
+# PyTorch version, which rounds every operation: no fused multiply-add.
+EXTRA_FLAGS = {"k3_replay_grad": ("-fmad=false",)}
 
 _LIBS: dict = {}
 # name -> (seconds, nvcc output) of the builds this process ran.
@@ -37,8 +40,12 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -49,6 +56,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_source_hash(name)}.so"
 
 
+def load_all(names) -> dict:
+    """Build every library of `names` that is missing, one nvcc process
+    each, all started together; then load them all -> {name: CDLL}."""
+    names = list(names)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if name in _LIBS or out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs[name] = (proc, time.perf_counter(), tmp, out)
+    failed = []
+    for name, (proc, t0, tmp, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {name}:\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+        BUILD_LOG[name] = (time.perf_counter() - t0, stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: load(name) for name in names}
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` as a shared library."""
     lib = _LIBS.get(name)
@@ -56,19 +92,7 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     out = library_path(name)
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-        BUILD_LOG[name] = (time.perf_counter() - t0,
-                           proc.stdout + proc.stderr)
+        return load_all([name])[name]
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
     return lib

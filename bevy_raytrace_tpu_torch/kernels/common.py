@@ -1,8 +1,10 @@
-"""Scalar helpers shared by the kernel's plain PyTorch twin.
+"""Helpers shared by the kernels' plain PyTorch twins.
 
 Mirror of the helpers `bevy_raytrace_tpu/kernels/pallas_render.py` gives
-its kernels (`_pcg4d`, `_to_unit`, `_rsqrt_guard`, `_cbrt`, `_TWO_PI`).
-Their CUDA counterparts live in `csrc/common.cuh`; keep the two in step.
+its kernels (`_pcg4d`, `_to_unit`, `_rsqrt_guard`, `_cbrt`, `_TWO_PI`), plus
+the kernels' camera ray and shading step on component planes
+(`_plain_camera`, `_plain_scatter`).  Their CUDA counterparts live in
+`csrc/common.cuh`; keep the two in step.
 """
 
 from __future__ import annotations
@@ -12,8 +14,10 @@ import torch
 from bevy_raytrace_tpu_torch.rng.pcg import TWO_PI as _TWO_PI
 from bevy_raytrace_tpu_torch.rng.pcg import _to_unit_float as _to_unit
 from bevy_raytrace_tpu_torch.rng.pcg import pcg4d as _pcg4d
+from bevy_raytrace_tpu_torch.wavefront.render import CAMERA_STREAM
 
-__all__ = ["_pcg4d", "_to_unit", "_rsqrt_guard", "_cbrt", "_TWO_PI"]
+__all__ = ["_pcg4d", "_to_unit", "_rsqrt_guard", "_cbrt", "_TWO_PI",
+           "_plain_camera", "_plain_scatter"]
 
 
 def _rsqrt_guard(n2):
@@ -25,3 +29,90 @@ def _cbrt(v):
     return torch.where(
         v < 1e-30, 0.0,
         torch.exp(torch.log(torch.clamp(v, min=1e-30)) * (1.0 / 3.0)))
+
+
+def _plain_camera(cam, px, py, pid, sample, seed, width, height):
+    """The kernels' thin-lens camera ray on component planes (common.cuh
+    `camera_ray`): cam is `Camera.pack()`'s [16], px/py the pixel
+    coordinates of the absolute pixel ids `pid`.  Returns (ox, oy, oz, dx,
+    dy, dz)."""
+    (cox, coy, coz, ux, uy, uz, vx, vy, vz, wx, wy, wz, half_w, half_h,
+     lens_r, focus) = cam.unbind(0)
+    cu1, cu2, cu3, cu4 = (_to_unit(v) for v in
+                          _pcg4d(pid, sample, CAMERA_STREAM, seed))
+    s_im = (px + cu1) / width
+    t_im = 1.0 - (py + cu2) / height
+    ru = torch.sqrt(cu3)
+    phi = _TWO_PI * cu4
+    du = ru * torch.cos(phi) * lens_r
+    dv = ru * torch.sin(phi) * lens_r
+    ox = cox + du * ux + dv * vx
+    oy = coy + du * uy + dv * vy
+    oz = coz + du * uz + dv * vz
+    su = (2.0 * s_im - 1.0) * half_w * focus
+    tv = (2.0 * t_im - 1.0) * half_h * focus
+    tx = cox - focus * wx + su * ux + tv * vx - ox
+    ty = coy - focus * wy + su * uy + tv * vy - oy
+    tz = coz - focus * wz + su * uz + tv * vz - oz
+    ginv = _rsqrt_guard(tx * tx + ty * ty + tz * tz)
+    return ox, oy, oz, tx * ginv, ty * ginv, tz * ginv
+
+
+def _plain_scatter(dx, dy, dz, nx, ny, nz, front, bkd, bfz, bio, u):
+    """The kernels' scatter on component planes: every material model for
+    every lane, selected by kind (0 Lambertian, 1 metal, 2 dielectric).
+
+    `u` holds the four bounce uniforms.  Returns (sx, sy, sz, is_die,
+    scat_ok): the new unit direction, the dielectric mask (attenuation 1
+    there, the albedo elsewhere) and scatter_ok."""
+    where = torch.where
+    u1, u2, u3, u4 = u
+    zs = 1.0 - 2.0 * u1
+    rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
+    ph = _TWO_PI * u2
+    rux, ruy, ruz = rs * torch.cos(ph), rs * torch.sin(ph), zs
+
+    lx, ly, lz = nx + rux, ny + ruy, nz + ruz
+    lam_deg = (torch.abs(lx) + torch.abs(ly) + torch.abs(lz)) < 1e-8
+    lx, ly, lz = where(lam_deg, nx, lx), where(lam_deg, ny, ly), \
+        where(lam_deg, nz, lz)
+    linv = _rsqrt_guard(lx * lx + ly * ly + lz * lz)
+    lx, ly, lz = lx * linv, ly * linv, lz * linv
+
+    ddn = dx * nx + dy * ny + dz * nz
+    rx = dx - 2.0 * ddn * nx
+    ry = dy - 2.0 * ddn * ny
+    rz = dz - 2.0 * ddn * nz
+    fz = bfz * _cbrt(u3)
+    mx, my, mz = rx + fz * rux, ry + fz * ruy, rz + fz * ruz
+    minv = _rsqrt_guard(mx * mx + my * my + mz * mz)
+    mx, my, mz = mx * minv, my * minv, mz * minv
+    met_ok = (mx * nx + my * ny + mz * nz) > 0.0
+
+    ratio = where(front, 1.0 / bio, bio)
+    cos_t = torch.clamp(-(dx * nx + dy * ny + dz * nz), max=1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cannot = ratio * sin_t > 1.0
+    r0 = (1.0 - ratio) / (1.0 + ratio)
+    r0 = r0 * r0
+    m1 = 1.0 - cos_t
+    m2 = m1 * m1
+    schlick = r0 + (1.0 - r0) * (m2 * m2 * m1)
+    use_refl = cannot | (schlick > u4)
+    ppx = ratio * (dx + cos_t * nx)
+    ppy = ratio * (dy + cos_t * ny)
+    ppz = ratio * (dz + cos_t * nz)
+    sqk = torch.sqrt(torch.abs(1.0 - (ppx * ppx + ppy * ppy + ppz * ppz)))
+    ex = where(use_refl, rx, ppx - sqk * nx)
+    ey = where(use_refl, ry, ppy - sqk * ny)
+    ez = where(use_refl, rz, ppz - sqk * nz)
+    einv = _rsqrt_guard(ex * ex + ey * ey + ez * ez)
+    ex, ey, ez = ex * einv, ey * einv, ez * einv
+
+    is_lam = bkd < 0.5
+    is_met = (bkd > 0.5) & (bkd < 1.5)
+    is_die = bkd > 1.5
+    sx = where(is_lam, lx, where(is_met, mx, ex))
+    sy = where(is_lam, ly, where(is_met, my, ey))
+    sz = where(is_lam, lz, where(is_met, mz, ez))
+    return sx, sy, sz, is_die, ~is_met | met_ok

@@ -37,13 +37,12 @@ import torch
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.kernels import build
 from bevy_raytrace_tpu_torch.kernels.common import (
-    _TWO_PI,
-    _cbrt,
     _pcg4d,
-    _rsqrt_guard,
+    _plain_camera,
+    _plain_scatter,
     _to_unit,
 )
-from bevy_raytrace_tpu_torch.wavefront.render import CAMERA_STREAM, frame_seed
+from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 LANE_ALIGN = 128
 # Float elements of one [lanes, spheres] temporary in the twin's sweep: the
@@ -100,8 +99,6 @@ def render_lanes_plain(geom, attr, cam, pids, seed: int, sample_base: int,
 def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
                  t_min, width, height):
     where = torch.where
-    (cox, coy, coz, ux, uy, uz, vx, vy, vz, wx, wy, wz, half_w, half_h,
-     lens_r, focus) = cam.unbind(0)
     gx, gy, gz, gr2 = geom.T.contiguous().unbind(0)
     px = (pid % width).to(torch.float32)
     py = (pid // width).to(torch.float32)
@@ -111,24 +108,8 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
     for s in range(spp):
         su = sample_base + s
         # ---- camera ray (thin lens) ------------------------------------
-        cu1, cu2, cu3, cu4 = (_to_unit(v) for v in
-                              _pcg4d(pid, su, CAMERA_STREAM, seed))
-        s_im = (px + cu1) / width
-        t_im = 1.0 - (py + cu2) / height
-        ru = torch.sqrt(cu3)
-        phi = _TWO_PI * cu4
-        du = ru * torch.cos(phi) * lens_r
-        dv = ru * torch.sin(phi) * lens_r
-        ox = cox + du * ux + dv * vx
-        oy = coy + du * uy + dv * vy
-        oz = coz + du * uz + dv * vz
-        su_ = (2.0 * s_im - 1.0) * half_w * focus
-        tv = (2.0 * t_im - 1.0) * half_h * focus
-        tx = cox - focus * wx + su_ * ux + tv * vx - ox
-        ty = coy - focus * wy + su_ * uy + tv * vy - oy
-        tz = coz - focus * wz + su_ * uz + tv * vz - oz
-        ginv = _rsqrt_guard(tx * tx + ty * ty + tz * tz)
-        dx, dy, dz = tx * ginv, ty * ginv, tz * ginv
+        ox, oy, oz, dx, dy, dz = _plain_camera(cam, px, py, pid, su, seed,
+                                               width, height)
         tp_r, tp_g, tp_b = zero + 1.0, zero + 1.0, zero + 1.0
         alive = torch.ones_like(px, dtype=torch.bool)
 
@@ -169,57 +150,9 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
             nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
 
             # ---- shade -------------------------------------------------
-            u1, u2, u3, u4 = (_to_unit(v) for v in
-                              _pcg4d(pid, su, bounce, seed))
-            zs = 1.0 - 2.0 * u1
-            rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
-            ph = _TWO_PI * u2
-            rux, ruy, ruz = rs * torch.cos(ph), rs * torch.sin(ph), zs
-
-            lx, ly, lz = nx + rux, ny + ruy, nz + ruz
-            lam_deg = (torch.abs(lx) + torch.abs(ly) + torch.abs(lz)) < 1e-8
-            lx, ly, lz = where(lam_deg, nx, lx), where(lam_deg, ny, ly), \
-                where(lam_deg, nz, lz)
-            linv = _rsqrt_guard(lx * lx + ly * ly + lz * lz)
-            lx, ly, lz = lx * linv, ly * linv, lz * linv
-
-            ddn = dx * nx + dy * ny + dz * nz
-            rx = dx - 2.0 * ddn * nx
-            ry = dy - 2.0 * ddn * ny
-            rz = dz - 2.0 * ddn * nz
-            fz = bfz * _cbrt(u3)
-            mx, my, mz = rx + fz * rux, ry + fz * ruy, rz + fz * ruz
-            minv = _rsqrt_guard(mx * mx + my * my + mz * mz)
-            mx, my, mz = mx * minv, my * minv, mz * minv
-            met_ok = (mx * nx + my * ny + mz * nz) > 0.0
-
-            ratio = where(front, 1.0 / bio, bio)
-            cos_t = torch.clamp(-(dx * nx + dy * ny + dz * nz), max=1.0)
-            sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-            cannot = ratio * sin_t > 1.0
-            r0 = (1.0 - ratio) / (1.0 + ratio)
-            r0 = r0 * r0
-            m1 = 1.0 - cos_t
-            m2 = m1 * m1
-            schlick = r0 + (1.0 - r0) * (m2 * m2 * m1)
-            use_refl = cannot | (schlick > u4)
-            ppx = ratio * (dx + cos_t * nx)
-            ppy = ratio * (dy + cos_t * ny)
-            ppz = ratio * (dz + cos_t * nz)
-            sqk = torch.sqrt(torch.abs(1.0 - (ppx * ppx + ppy * ppy + ppz * ppz)))
-            ex = where(use_refl, rx, ppx - sqk * nx)
-            ey = where(use_refl, ry, ppy - sqk * ny)
-            ez = where(use_refl, rz, ppz - sqk * nz)
-            einv = _rsqrt_guard(ex * ex + ey * ey + ez * ez)
-            ex, ey, ez = ex * einv, ey * einv, ez * einv
-
-            is_lam = bkd < 0.5
-            is_met = (bkd > 0.5) & (bkd < 1.5)
-            is_die = bkd > 1.5
-            sx = where(is_lam, lx, where(is_met, mx, ex))
-            sy = where(is_lam, ly, where(is_met, my, ey))
-            sz = where(is_lam, lz, where(is_met, mz, ez))
-            scat_ok = ~is_met | met_ok
+            sx, sy, sz, is_die, scat_ok = _plain_scatter(
+                dx, dy, dz, nx, ny, nz, front, bkd, bfz, bio,
+                [_to_unit(v) for v in _pcg4d(pid, su, bounce, seed)])
 
             tsky = 0.5 * (dy + 1.0)
             add = alive & ~hit
@@ -258,7 +191,7 @@ def _check(name, t, dtype, shape, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, pids on {device}")
+        raise ValueError(f"{name} is on {t.device}, the operands on {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if any(want is not None and got != want

@@ -56,3 +56,23 @@ def compare(a, b, th: Thresholds) -> dict:
                    and stats["bad_frac"] <= th.bad_frac
                    and stats["mean_bias"] <= th.mean_bias)
     return stats
+
+
+def grad_close(a, b, rtol: float = 2e-3, glob: float = 0.0) -> dict:
+    """Two estimates `a` (tested) and `b` (reference) of one gradient array,
+    under the JAX package's rule for them (tests/test_replay_grad.py
+    `_compare`): |a - b| <= rtol (|b| + scale) elementwise, with scale the
+    max-abs of `b` plus 1e-3 of `glob`, the largest max-abs over the arrays
+    compared together (so near-zero arrays are held to the others' scale).
+
+    Returns {"ok", "max_abs_err", "rel_err" (max error / scale)}."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch: {a.shape} vs {b.shape}")
+    scale = float(np.abs(b).max(initial=0.0)) + 1e-3 * glob
+    err = np.abs(a - b)
+    worst = float(err.max(initial=0.0))
+    return {"ok": bool(np.isfinite(a).all()
+                       and (err <= rtol * (np.abs(b) + scale)).all()),
+            "max_abs_err": worst, "rel_err": worst / max(scale, 1e-30)}

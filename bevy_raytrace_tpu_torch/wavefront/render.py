@@ -1,24 +1,28 @@
-"""The wavefront renderer: the port's forward-only "torch" backend.
+"""The wavefront renderer: the port's differentiable "torch" backend.
 
 Mirror of `bevy_raytrace_tpu/wavefront/render.py`: camera rays for every
 (pixel, sample) pair, then `max_depth` rounds of (intersect -> shade) over a
 dense, masked wavefront (ray index == pixel index, dead lanes masked, never
-compacted), then the mean over samples.  It runs on any device and is the
-oracle the CUDA kernel is checked against on the card.
+compacted), then the mean over samples.  It runs on any device, is the
+oracle the CUDA kernels are checked against on the card, and is the default
+differentiable renderer of `inverse.render_loss`.
+
+Autograd: each bounce is checkpointed (`torch.utils.checkpoint`) when grad
+mode is on, so the backward recomputes a bounce's [rays, spheres] workspace
+instead of storing it for every bounce.  With `edge_softness > 0` the
+two-sided soft-silhouette straight-through term leaves every pixel value
+unchanged and adds the boundary gradient ds * (L_path - L_bg).
 
 Deliberate divergence from the reference: a `ray_chunk` that does not divide
 the local pixel count raises.  The reference falls back to the closest
 divisor, which can be LARGER than requested and so exceed the workspace
 bound the chunk exists to keep.
-
-Autograd (the bounce-checkpointed backward and the `edge_softness`
-straight-through term) is not ported yet: the bounce loop runs under
-`torch.no_grad()`.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.core.camera import Camera
@@ -47,21 +51,38 @@ def _bounce_step(scene: Scene, config: RenderConfig, pixel_ids, sample_ids,
     """Returns the body of one (intersect -> shade) round."""
     table = sphere_table(scene.centers, scene.radii, scene.materials,
                          scene.material_id)
+    with_second = config.edge_softness > 0.0
 
     def body(carry, bounce_idx):
         ray, throughput, radiance, alive = carry
-        hit, albedo, kind, fuzz, ior = intersect_scene_fused(
-            ray, scene, config.t_min, config.t_max, table)
+        out = intersect_scene_fused(ray, scene, config.t_min, config.t_max,
+                                    table, with_second=with_second)
+        hit, albedo, kind, fuzz, ior = out[:5]
         u = uniform4(pixel_ids, sample_ids, bounce_idx, seed)
         new_dir, attenuation, scatter_ok = scatter(
             ray.dir, hit.normal, hit.front_face, albedo, kind, fuzz, ior, u)
 
+        sky = sky_color(ray.dir)
         add_sky = (alive & ~hit.hit)[:, None]
-        radiance = radiance + torch.where(
-            add_sky, throughput * sky_color(ray.dir), 0.0)
+        radiance = radiance + torch.where(add_sky, throughput * sky, 0.0)
         scattered = alive & hit.hit
-        throughput = torch.where(scattered[:, None], throughput * attenuation,
-                                 throughput)
+        attenuation_eff = attenuation
+        if with_second:
+            # Straight-through soft silhouette: st == 1.0 exactly in value
+            # (s - s.detach() is exactly 0), so the image is the hard
+            # render's; gradients gain ds * (L_path - L_bg), L_bg the
+            # runner-up's one-bounce shade (albedo2 * sky) where the edge
+            # occludes geometry, else the sky.
+            hit2, albedo2, _ = out[5]
+            s_soft = torch.sigmoid(hit.edge_m2 / config.edge_softness)
+            st = 1.0 + (s_soft - s_soft.detach())
+            attenuation_eff = attenuation * st[:, None]
+            sky_bg = torch.where(hit2[:, None], albedo2.detach() * sky, sky)
+            radiance = radiance + torch.where(
+                scattered[:, None], (1.0 - st)[:, None] * throughput * sky_bg,
+                0.0)
+        throughput = torch.where(scattered[:, None],
+                                 throughput * attenuation_eff, throughput)
         alive_next = scattered & scatter_ok
 
         keep = alive_next[:, None]
@@ -72,7 +93,6 @@ def _bounce_step(scene: Scene, config: RenderConfig, pixel_ids, sample_ids,
     return body
 
 
-@torch.no_grad()
 def trace_paths(scene, camera, config, pixel_ids, sample_ids, seed):
     """Trace one path per (pixel_id, sample_id) pair -> radiance [K,3].
 
@@ -92,8 +112,11 @@ def trace_paths(scene, camera, config, pixel_ids, sample_ids, seed):
              torch.zeros((k, 3), dtype=torch.float32, device=dev),
              torch.ones((k,), dtype=torch.bool, device=dev))
     body = _bounce_step(scene, config, pixel_ids, sample_ids, seed)
+    remat = torch.is_grad_enabled()
     for bounce in range(config.max_depth):
-        carry = body(carry, bounce)
+        carry = (checkpoint(body, carry, bounce, use_reentrant=False,
+                            preserve_rng_state=False)
+                 if remat else body(carry, bounce))
     return carry[2]
 
 
@@ -117,12 +140,13 @@ def render_pixel_range(scene: Scene, camera: Camera, config: RenderConfig,
                                   device=dev).repeat_interleave(ray_chunk)
     fb_sum = torch.zeros((num_local, 3), dtype=torch.float32, device=dev)
     for sample_base in range(0, config.samples_per_pixel, spp_chunk):
+        parts = []
         for lo in range(0, num_local, ray_chunk):
             pids = pixel_ids[lo:lo + ray_chunk].repeat(spp_chunk)
             rad = trace_paths(scene, camera, config, pids,
                               sample_base + sample_offsets, seed)
-            fb_sum[lo:lo + ray_chunk] += rad.reshape(
-                spp_chunk, ray_chunk, 3).sum(dim=0)
+            parts.append(rad.reshape(spp_chunk, ray_chunk, 3).sum(dim=0))
+        fb_sum = fb_sum + torch.cat(parts)
     return fb_sum / config.samples_per_pixel
 
 

@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (the forward render of a frame through the K1
-CUDA kernel) from a checkout of this repository, and fails loudly — a
-traceback and a nonzero exit — if any phase fails:
+Drives the port's main paths from a checkout of this repository — the
+forward render of a frame through the K1 CUDA kernel, and inverse rendering
+through the K2 (recording forward) and K3 (replay gradient) CUDA kernels —
+and fails loudly — a traceback and a nonzero exit — if any phase fails:
 
   1. environment: torch/CUDA versions, the card (nvidia-smi), nvcc;
   2. build: K1 from bevy_raytrace_tpu_torch/csrc with nvcc, timed;
@@ -18,9 +19,28 @@ traceback and a nonzero exit — if any phase fails:
      frames; finite, and one 16,384-pixel stripe against the twin;
   5. the flagship (1200x800, 256 spp, depth 8, rtiow_final) through
      render_mxu_balanced, timed;
-  6. K1's launch count over phases 4-5 must be > 0.
+  6. K1's launch count over phases 4-5 must be > 0;
+  7. build: K2 (k2_record) and K3 (k3_replay_grad), one nvcc each, started
+     together, timed, with ptxas registers and spills;
+  8. K2 against its plain twin at the gradient bench's shape (400x300,
+     16 spp, depth 8, rtiow_final, edge_softness 0.01): image under
+     parity.COMPILED, at most 2% of residual entries differing, and the
+     torch replay of the kernel's residuals reconstructing its image;
+  9. K3 against its plain twin (autograd of the torch replay) on those
+     residuals with a seeded cotangent: d_table and d_cam to rtol 2e-3 of
+     each array's max-abs;
+ 10. inverse rendering at the CLI's size (1200x800, 64 spp, depth 8,
+     edge_softness 0.01, config1 perturbed as `cli inverse` does): 3 Adam
+     steps with a checkpoint, resumed to 6 steps, and the step-3 checkpoint
+     resumed again for the same 3 steps; finite losses, the last below the
+     first, the two resumed runs agreeing;
+ 11. the flagship gradient (1200x800, 256 spp, depth 8, rtiow_final, d
+     mean(img^2) / d centers) unchunked and with grad_spp_chunk=64; finite
+     and agreeing to rtol 2e-3;
+ 12. K2's and K3's launch counts over phases 10-11 must be > 0.
 
-Kernel times are CUDA-event times.  Prints a {"kernels": [...]} line, the
+Kernel times are CUDA-event times; step times are host-clock times to
+torch.cuda.synchronize().  Prints a {"kernels": [...]} line, the
 card's name and power limit, and last {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
@@ -64,6 +84,204 @@ def cuda_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def gradient_phases(dev, smi):
+    """Phases 7-12: K2 and K3, and the inverse-rendering path through them.
+    Returns (the kernels' JSON entries, extra stats)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bevy_raytrace_tpu_torch import RenderConfig
+    from bevy_raytrace_tpu_torch import scenes
+    from bevy_raytrace_tpu_torch.inverse import (
+        InverseProblem,
+        make_fast_renderer,
+        optimize,
+        replay_image,
+    )
+    from bevy_raytrace_tpu_torch.kernels import build
+    from bevy_raytrace_tpu_torch.kernels import record as k2
+    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
+    from bevy_raytrace_tpu_torch.parity import COMPILED, compare, grad_close
+    from bevy_raytrace_tpu_torch.wavefront.render import render
+
+    # ---- 7. build K2 and K3 ----------------------------------------------
+    names = ["k2_record", "k3_replay_grad"]
+    t0 = time.perf_counter()
+    build.load_all(names)
+    build_s = time.perf_counter() - t0
+    for name in names:
+        secs, out = build.BUILD_LOG.get(name, (0.0, ""))
+        log(f"[build] {name}: nvcc {secs:.2f} s")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    log(f"[build] k2 + k3 in {build_s:.2f} s (in parallel)")
+
+    # ---- 8. K2 vs its twin at the gradient bench's shape -----------------
+    cfg = RenderConfig(width=400, height=300, samples_per_pixel=16,
+                       max_depth=8, edge_softness=0.01)
+    scene = scenes.rtiow_final_scene(0, device=dev)[0]
+    cam = scenes.rtiow_final_camera(cfg.aspect, device=dev)
+    table, cam16 = k2._operands(scene, cam)
+    k2_ms, (img, res, res2) = cuda_ms(
+        lambda: k2.record_frame(table, cam16, cfg, 1, record_second=True), 3)
+    k2_plain_ms, (pimg, pres, pres2) = cuda_ms(
+        lambda: k2.record_frame_plain(table, cam16, cfg, 1,
+                                      record_second=True), 1, warm=False)
+    img_vs = compare(img.cpu().numpy(), pimg.cpu().numpy(), COMPILED)
+    res_off = float((res != pres).float().mean())
+    res2_off = float((res2 != pres2).float().mean())
+    log(f"[k2] {scene.count} spheres, {cfg.width}x{cfg.height}x"
+        f"{cfg.samples_per_pixel} depth {cfg.max_depth}: kernel "
+        f"{k2_ms:.3f} ms, twin {k2_plain_ms:.1f} ms; image vs twin {img_vs}; "
+        f"residuals differing: res {res_off:.5%}, res2 {res2_off:.5%}")
+    check(img_vs["ok"], f"K2 image vs twin {img_vs}")
+    check(res.dtype == torch.int16, f"residual dtype {res.dtype}")
+    check(res_off <= 0.02 and res2_off <= 0.02,
+          f"K2 residuals differ from the twin's on {res_off:.3%} / "
+          f"{res2_off:.3%} of entries")
+    del pimg, pres, pres2
+    with torch.no_grad():
+        rep = replay_image(scene, cam, cfg, res, 1, res2=res2)
+    rep_vs = compare(rep.cpu().numpy(), img.cpu().numpy(), COMPILED)
+    log(f"[k2] torch replay of the kernel's residuals vs its image {rep_vs}")
+    check(rep_vs["ok"], f"replay does not reconstruct the K2 image {rep_vs}")
+
+    # ---- 9. K3 vs its twin on K2's residuals ------------------------------
+    gen = np.random.default_rng(0)
+    g = torch.from_numpy(gen.standard_normal(
+        (cfg.height, cfg.width, 3)).astype(np.float32)).to(dev)
+    k3_ms, (d_tbl, d_cam) = cuda_ms(
+        lambda: k3.replay_grad(table, cam16, cfg, res, g, 1, res2=res2), 3)
+    k3_plain_ms, (p_tbl, p_cam) = cuda_ms(
+        lambda: k3.replay_grad_plain(table, cam16, cfg, res, g, 1, res2=res2),
+        1, warm=False)
+    glob = max(float(p_tbl.abs().max()), float(p_cam.abs().max()))
+    tbl_vs = grad_close(d_tbl.cpu(), p_tbl.cpu(), glob=glob)
+    cam_vs = grad_close(d_cam.cpu(), p_cam.cpu(), glob=glob)
+    log(f"[k3] kernel {k3_ms:.3f} ms, twin {k3_plain_ms:.1f} ms; d_table "
+        f"vs twin {tbl_vs}, d_cam vs twin {cam_vs}")
+    check(tbl_vs["ok"] and cam_vs["ok"],
+          "K3 cotangents disagree with the twin's (rtol 2e-3)")
+    del res, res2, p_tbl, p_cam
+
+    # ---- 10. inverse rendering at the CLI's size --------------------------
+    k2.record_frame.launches = 0
+    k3.replay_grad.launches = 0
+    inv_cfg = RenderConfig(width=1200, height=800, samples_per_pixel=64,
+                           max_depth=8)
+    opt_cfg = inv_cfg.replace(edge_softness=0.01)
+    scene_true = scenes.baseline_config1_scene(device=dev)[0]
+    camera = scenes.baseline_config1_camera(inv_cfg.aspect, device=dev)
+    with torch.no_grad():
+        target = render(scene_true, camera, inv_cfg, 9999)
+    albedo = scene_true.materials.albedo.clone()
+    albedo[1] = torch.tensor([0.2, 0.8, 0.6], device=dev)
+    centers = scene_true.centers.clone()
+    centers[1] += torch.tensor([0.25, -0.1, 0.1], device=dev)
+    scene_bad = dataclasses.replace(
+        scene_true, centers=centers,
+        materials=dataclasses.replace(scene_true.materials, albedo=albedo))
+    fast = make_fast_renderer(opt_cfg, backward="kernel")
+    problem = InverseProblem(
+        config=opt_cfg, camera=camera, target=target,
+        optimizable=("centers", "albedo"),
+        render_fn=lambda sc, c, cf, fr: fast(sc, c, fr))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, ck3 = os.path.join(tmp, "inverse.npz"), os.path.join(tmp, "s3.npz")
+        t0 = time.perf_counter()
+        first = optimize(scene_bad, problem, steps=3, learning_rate=1.5e-2,
+                         checkpoint_path=ck, checkpoint_every=3)
+        shutil.copy(ck, ck3)
+        rest = optimize(scene_bad, problem, steps=6, learning_rate=1.5e-2,
+                        checkpoint_path=ck, checkpoint_every=3)
+        torch.cuda.synchronize()
+        inv_s = time.perf_counter() - t0
+        again = optimize(scene_bad, problem, steps=6, learning_rate=1.5e-2,
+                         checkpoint_path=ck3, checkpoint_every=100)
+    losses = first.losses + rest.losses
+    step_s = inv_s / len(losses)
+    inv_pps = 2 * inv_cfg.rays_per_frame / step_s
+    log(f"[inverse] {inv_cfg.width}x{inv_cfg.height}x"
+        f"{inv_cfg.samples_per_pixel} depth {inv_cfg.max_depth}, config1: "
+        f"losses {[f'{v:.6f}' for v in losses]}; resumed from step 3 again: "
+        f"{[f'{v:.6f}' for v in again.losses]}; {step_s:.3f} s/step, "
+        f"{inv_pps / 1e6:.1f}M paths/s (2 renders per step) on {smi}")
+    log(f"[inverse] center {rest.scene.centers[1].tolist()} (true "
+        f"{scene_true.centers[1].tolist()}), albedo "
+        f"{rest.scene.materials.albedo[1].tolist()} (true "
+        f"{scene_true.materials.albedo[1].tolist()})")
+    check(len(losses) == 6 and all(np.isfinite(losses)),
+          f"inverse losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(np.allclose(again.losses, rest.losses, rtol=1e-2, atol=1e-7),
+          f"resuming the step-3 checkpoint twice disagrees: {rest.losses} "
+          f"vs {again.losses}")
+
+    # ---- 11. the flagship gradient ----------------------------------------
+    big = RenderConfig(width=1200, height=800, samples_per_pixel=256,
+                       max_depth=8)
+    cam_big = scenes.rtiow_final_camera(big.aspect, device=dev)
+
+    def flagship_grad(render_fn):
+        c = scene.centers.clone().requires_grad_(True)
+        loss = torch.mean(render_fn(dataclasses.replace(scene, centers=c),
+                                    cam_big, 1) ** 2)
+        (grad,) = torch.autograd.grad(loss, c)
+        return grad
+
+    flag = {}
+    for label, chunk in (("unchunked", 0), ("chunk64", 64)):
+        render_fn = make_fast_renderer(big, grad_spp_chunk=chunk)
+        flagship_grad(render_fn)  # warm-up: allocations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad = flagship_grad(render_fn)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        flag[label] = (grad, secs, big.rays_per_frame / secs)
+        log(f"[flagship grad] {label}: {secs:.3f} s/step, "
+            f"{big.rays_per_frame / secs / 1e6:.1f}M paths/s fwd+bwd "
+            f"(1200x800x256 depth 8, {scene.count} spheres) on {smi}")
+    (g_full, _, _), (g_chunk, _, _) = flag["unchunked"], flag["chunk64"]
+    check(bool(torch.isfinite(g_full).all()), "flagship gradient not finite")
+    fl_vs = grad_close(g_chunk.cpu(), g_full.cpu())
+    log(f"[flagship grad] chunked vs unchunked {fl_vs}")
+    check(fl_vs["ok"], "chunked flagship gradient disagrees with the unchunked")
+
+    # ---- 12. launches -----------------------------------------------------
+    k2_launches = k2.record_frame.launches
+    k3_launches = k3.replay_grad.launches
+    log(f"[launches] k2_record launches={k2_launches}, k3_replay_grad "
+        f"launches={k3_launches} over phases 10-11")
+    check(k2_launches > 0 and k3_launches > 0,
+          "K2 or K3 was not launched by the inverse-rendering path")
+
+    entries = [
+        {"name": "k2_record", "route": "cuda",
+         "source": "bevy_raytrace_tpu_torch/csrc/k2_record.cu",
+         "replaces": "bevy_raytrace_tpu/kernels/pallas_render.py:123",
+         "launches": k2_launches, "max_abs_err": img_vs["max_abs_err"],
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "k3_replay_grad", "route": "cuda",
+         "source": "bevy_raytrace_tpu_torch/csrc/k3_replay_grad.cu",
+         "replaces": "bevy_raytrace_tpu/kernels/replay_grad.py:74",
+         "launches": k3_launches,
+         "max_abs_err": max(tbl_vs["max_abs_err"], cam_vs["max_abs_err"]),
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+    ]
+    stats = {"grad_build_s": build_s, "k2_residual_off": [res_off, res2_off],
+             "k3_rel_err": [tbl_vs["rel_err"], cam_vs["rel_err"]], "inverse_losses": losses,
+             "inverse_s_per_step": step_s, "inverse_paths_per_s": inv_pps,
+             "flagship_grad_s": {k: v[1] for k, v in flag.items()},
+             "flagship_grad_paths_per_s": {k: v[2] for k, v in flag.items()}}
+    return entries, stats
 
 
 def main() -> int:
@@ -214,17 +432,20 @@ def main() -> int:
     log(f"[launches] k1_render launches={launches} over the main path")
     check(launches > 0, "K1 was not launched by the main path")
 
-    log(json.dumps({"kernels": [{
+    k1_entry = {
         "name": "k1_render", "route": "cuda",
         "source": "bevy_raytrace_tpu_torch/csrc/k1_render.cu",
         "replaces": "bevy_raytrace_tpu/kernels/mxu_render.py:99",
         "launches": launches,
         "max_abs_err": ref_vs_twin["max_abs_err"],
         "ms": ref_ms, "plain_ms": plain_ms,
-    }]}))
+    }
+    grad_entries, grad_stats = gradient_phases(dev, smi)
+    log(json.dumps({"kernels": [k1_entry, *grad_entries]}))
     log(json.dumps({"build_s": build_s, "verify_ms": verify_times,
                     "reference_frame_ms": frame_ms,
-                    "flagship_s": flag_s, "flagship_rays_per_s": flag_rps}))
+                    "flagship_s": flag_s, "flagship_rays_per_s": flag_rps,
+                    **grad_stats}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
