@@ -4,7 +4,10 @@
 // package's Pallas kernels use): PCG4D in native uint32_t arithmetic,
 // the 24-bit unit-float map, the guarded rsqrt, the positive cube root, the
 // thin-lens camera ray, the sky and the material scatter.  Keep the two in
-// step: the kernels' plain PyTorch twins use the Python side.
+// step: the kernels' plain PyTorch twins use the Python side.  K1 and K2
+// shade with camera_ray and scatter; K3 replays the same steps in its own
+// form (hit_forward), which keeps the intermediates its adjoint reads and
+// normalizes with a correctly rounded 1/sqrt instead of rsqrtf.
 #pragma once
 
 #include <cstdint>

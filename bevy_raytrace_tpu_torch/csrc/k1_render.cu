@@ -15,7 +15,9 @@
 //     index order: the reference's first-wins tie rule, with no cap on the
 //     sphere count.  The winner's t is then recomputed with an exact sqrt;
 //   * Lambertian, metal (fuzz + below-horizon absorb) and dielectric (TIR +
-//     Schlick); sky on a miss; depth exhaustion kills the path with black;
+//     Schlick); sky on a miss; depth exhaustion kills the path with black.
+//     The camera ray, the sky and the scatter are common.cuh's, shared with
+//     K2;
 //   * radiance and the per-lane count of executed rounds (the cost map)
 //     accumulate in registers in (sample, bounce) order, the TPU kernel's
 //     order, and are written once.  The wrapper divides by spp.
@@ -50,11 +52,6 @@ namespace {
 
 constexpr int kThreads = 128;
 
-struct Cam {
-  float ox, oy, oz, ux, uy, uz, vx, vy, vz, wx, wy, wz, half_w, half_h, lens_r,
-      focus;
-};
-
 // geom[i] = (cx, cy, cz, r^2); attr[2i] = (1/r, albedo r, g, b),
 // attr[2i+1] = (kind, fuzz, ior, 0).  1/r keeps the radius sign (hollow glass).
 __global__ void __launch_bounds__(kThreads)
@@ -67,12 +64,7 @@ __global__ void __launch_bounds__(kThreads)
                      int max_depth, float t_min, int width, int height) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
-  Cam c;
-  {
-    float* cp = reinterpret_cast<float*>(&c);
-#pragma unroll
-    for (int k = 0; k < 16; ++k) cp[k] = __ldg(cam_in + k);
-  }
+  const brt::Cam c = brt::load_cam(cam_in);
   const int pid = pids[lane];
   const uint32_t upid = static_cast<uint32_t>(pid);
   const float px = static_cast<float>(pid % width);
@@ -84,27 +76,11 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int s = 0; s < spp; ++s) {
     const uint32_t su = sample_base + static_cast<uint32_t>(s);
-    // ---- camera ray (thin lens) -------------------------------------------
     uint32_t ca = upid, cb = su, cc = brt::CAMERA_STREAM, cd = seed;
     brt::pcg4d(ca, cb, cc, cd);
-    const float cu1 = brt::to_unit(ca), cu2 = brt::to_unit(cb);
-    const float cu3 = brt::to_unit(cc), cu4 = brt::to_unit(cd);
-    const float s_im = (px + cu1) / fw;
-    const float t_im = 1.0f - (py + cu2) / fh;
-    const float ru = sqrtf(cu3);
-    const float phi = brt::TWO_PI * cu4;
-    const float du = ru * cosf(phi) * c.lens_r;
-    const float dv = ru * sinf(phi) * c.lens_r;
-    float ox = c.ox + du * c.ux + dv * c.vx;
-    float oy = c.oy + du * c.uy + dv * c.vy;
-    float oz = c.oz + du * c.uz + dv * c.vz;
-    const float sx_ = (2.0f * s_im - 1.0f) * c.half_w * c.focus;
-    const float tv_ = (2.0f * t_im - 1.0f) * c.half_h * c.focus;
-    const float tx = c.ox - c.focus * c.wx + sx_ * c.ux + tv_ * c.vx - ox;
-    const float ty = c.oy - c.focus * c.wy + sx_ * c.uy + tv_ * c.vy - oy;
-    const float tz = c.oz - c.focus * c.wz + sx_ * c.uz + tv_ * c.vz - oz;
-    const float ginv = brt::rsqrt_guard(tx * tx + ty * ty + tz * tz);
-    float dx = tx * ginv, dy = ty * ginv, dz = tz * ginv;
+    float o[3], d[3];
+    brt::camera_ray(c, px, py, fw, fh, brt::to_unit(ca), brt::to_unit(cb),
+                    brt::to_unit(cc), brt::to_unit(cd), o, d);
     float tp_r = 1.f, tp_g = 1.f, tp_b = 1.f;
 
     for (int bounce = 0; bounce < max_depth; ++bounce) {
@@ -114,8 +90,8 @@ __global__ void __launch_bounds__(kThreads)
       int best = -1;
       for (int i = 0; i < n_spheres; ++i) {
         const float4 g = __ldg(geom + i);
-        const float ocx = ox - g.x, ocy = oy - g.y, ocz = oz - g.z;
-        const float hb = ocx * dx + ocy * dy + ocz * dz;
+        const float ocx = o[0] - g.x, ocy = o[1] - g.y, ocz = o[2] - g.z;
+        const float hb = ocx * d[0] + ocy * d[1] + ocz * d[2];
         const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - g.w;
         const float disc = hb * hb - cq;
         if (disc > 0.f) {
@@ -129,9 +105,10 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       if (best < 0) {  // miss: sky, and the path ends
-        const float tsky = 0.5f * (dy + 1.0f);
-        acc_r += tp_r * (1.0f - 0.5f * tsky);
-        acc_g += tp_g * (1.0f - 0.3f * tsky);
+        float sk_r, sk_g;
+        brt::sky(d[1], sk_r, sk_g);
+        acc_r += tp_r * sk_r;
+        acc_g += tp_g * sk_g;
         acc_b += tp_b;
         break;
       }
@@ -139,109 +116,40 @@ __global__ void __launch_bounds__(kThreads)
       const float4 g = __ldg(geom + best);
       const float4 a0 = __ldg(attr + 2 * best);
       const float4 a1 = __ldg(attr + 2 * best + 1);
-      const float rocx = ox - g.x, rocy = oy - g.y, rocz = oz - g.z;
-      const float hb_r = rocx * dx + rocy * dy + rocz * dz;
+      const float rocx = o[0] - g.x, rocy = o[1] - g.y, rocz = o[2] - g.z;
+      const float hb_r = rocx * d[0] + rocy * d[1] + rocz * d[2];
       const float cq_r = (rocx * rocx + rocy * rocy + rocz * rocz) - g.w;
       const float sq_r = sqrtf(fmaxf(hb_r * hb_r - cq_r, 0.f));
       const float rn_r = -hb_r - sq_r;
       const float bt = rn_r > t_min ? rn_r : sq_r - hb_r;
-      const float hx = ox + bt * dx, hy = oy + bt * dy, hz = oz + bt * dz;
-      float nx = (hx - g.x) * a0.x, ny = (hy - g.y) * a0.x,
-            nz = (hz - g.z) * a0.x;
-      const bool front = (dx * nx + dy * ny + dz * nz) < 0.f;
+      const float h[3] = {o[0] + bt * d[0], o[1] + bt * d[1], o[2] + bt * d[2]};
+      float n[3] = {(h[0] - g.x) * a0.x, (h[1] - g.y) * a0.x,
+                    (h[2] - g.z) * a0.x};
+      const bool front = (d[0] * n[0] + d[1] * n[1] + d[2] * n[2]) < 0.f;
       if (!front) {
-        nx = -nx;
-        ny = -ny;
-        nz = -nz;
+        n[0] = -n[0];
+        n[1] = -n[1];
+        n[2] = -n[2];
       }
-      const float kind = a1.x;
       // ---- shade -----------------------------------------------------------
       uint32_t ba = upid, bb = su, bc = static_cast<uint32_t>(bounce),
                bd = seed;
       brt::pcg4d(ba, bb, bc, bd);
-      const float u1 = brt::to_unit(ba), u2 = brt::to_unit(bb);
-      const float u3 = brt::to_unit(bc), u4 = brt::to_unit(bd);
-      const float zs = 1.0f - 2.0f * u1;
-      const float rs = sqrtf(fmaxf(0.f, 1.0f - zs * zs));
-      const float ph = brt::TWO_PI * u2;
-      const float rux = rs * cosf(ph), ruy = rs * sinf(ph), ruz = zs;
-
-      float sx, sy, sz, at_r, at_g, at_b;
-      if (kind < 0.5f) {  // Lambertian
-        float lx = nx + rux, ly = ny + ruy, lz = nz + ruz;
-        if ((fabsf(lx) + fabsf(ly) + fabsf(lz)) < 1e-8f) {
-          lx = nx;
-          ly = ny;
-          lz = nz;
-        }
-        const float linv = brt::rsqrt_guard(lx * lx + ly * ly + lz * lz);
-        sx = lx * linv;
-        sy = ly * linv;
-        sz = lz * linv;
-        at_r = a0.y;
-        at_g = a0.z;
-        at_b = a0.w;
-      } else {
-        const float ddn = dx * nx + dy * ny + dz * nz;
-        const float rx = dx - 2.0f * ddn * nx;
-        const float ry = dy - 2.0f * ddn * ny;
-        const float rz = dz - 2.0f * ddn * nz;
-        if (kind < 1.5f) {  // metal
-          const float fz = a1.y * brt::cbrt_pos(u3);
-          float mx = rx + fz * rux, my = ry + fz * ruy, mz = rz + fz * ruz;
-          const float minv = brt::rsqrt_guard(mx * mx + my * my + mz * mz);
-          mx *= minv;
-          my *= minv;
-          mz *= minv;
-          if (!((mx * nx + my * ny + mz * nz) > 0.f)) break;  // absorbed
-          sx = mx;
-          sy = my;
-          sz = mz;
-          at_r = a0.y;
-          at_g = a0.z;
-          at_b = a0.w;
-        } else {  // dielectric
-          const float ior = a1.z;
-          const float ratio = front ? 1.0f / ior : ior;
-          const float cos_t = fminf(-(dx * nx + dy * ny + dz * nz), 1.0f);
-          const float sin_t = sqrtf(fmaxf(0.f, 1.0f - cos_t * cos_t));
-          const bool cannot = ratio * sin_t > 1.0f;
-          float r0 = (1.0f - ratio) / (1.0f + ratio);
-          r0 = r0 * r0;
-          const float m1 = 1.0f - cos_t;
-          const float m2 = m1 * m1;
-          const float schlick = r0 + (1.0f - r0) * (m2 * m2 * m1);
-          float ex, ey, ez;
-          if (cannot || schlick > u4) {
-            ex = rx;
-            ey = ry;
-            ez = rz;
-          } else {
-            const float ppx = ratio * (dx + cos_t * nx);
-            const float ppy = ratio * (dy + cos_t * ny);
-            const float ppz = ratio * (dz + cos_t * nz);
-            const float sqk =
-                sqrtf(fabsf(1.0f - (ppx * ppx + ppy * ppy + ppz * ppz)));
-            ex = ppx - sqk * nx;
-            ey = ppy - sqk * ny;
-            ez = ppz - sqk * nz;
-          }
-          const float einv = brt::rsqrt_guard(ex * ex + ey * ey + ez * ez);
-          sx = ex * einv;
-          sy = ey * einv;
-          sz = ez * einv;
-          at_r = at_g = at_b = 1.0f;
-        }
+      float sdir[3];
+      if (!brt::scatter(d, n, front, a1.x, a1.y, a1.z, brt::to_unit(ba),
+                        brt::to_unit(bb), brt::to_unit(bc), brt::to_unit(bd),
+                        sdir))
+        break;  // a fuzzed metal reflection below the surface: absorbed
+      if (brt::is_lambertian(a1.x) || brt::is_metal(a1.x)) {  // glass: 1
+        tp_r *= a0.y;
+        tp_g *= a0.z;
+        tp_b *= a0.w;
       }
-      tp_r *= at_r;
-      tp_g *= at_g;
-      tp_b *= at_b;
-      ox = hx;
-      oy = hy;
-      oz = hz;
-      dx = sx;
-      dy = sy;
-      dz = sz;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        o[k] = h[k];
+        d[k] = sdir[k];
+      }
     }
   }
   fb[3 * lane + 0] = acc_r;

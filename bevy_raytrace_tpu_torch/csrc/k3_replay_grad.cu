@@ -47,18 +47,31 @@
 // rounds the result to float32 once.  The order of the atomics varies from
 // run to run, so the result is not bit-deterministic.
 //
-// What bounds it on an H100: the per-path arithmetic (about twice the
-// forward's, plus the recompute in the reverse sweep) and, on scenes where
-// most paths hit one sphere (the ground), contention of the atomics on that
-// sphere's row.  No sphere search runs: the cost does not grow with the
-// sphere count.  The residual reads are coalesced (consecutive threads,
-// consecutive pids of one sample).
+// What bounds it on an H100 is not settled (PERF.md): the candidates are the
+// d_table atomics, the per-thread state array (local memory), the occupancy
+// its ~115 registers allow (4 blocks of 128 per SM), and the correctly
+// rounded divisions and square roots.  No sphere search runs: the cost does
+// not grow with the sphere count.  The residual reads are coalesced
+// (consecutive threads, consecutive pids of one sample).
+//
+// Measurement probes, built only by profile_grad.py (the default build is
+// the kernel): BRT_K3_TABLE_ADD = 64 adds a row's cotangent with float64
+// atomics (the kernel), 32 with float32 atomics into the same buffer, 0 into
+// a per-thread register only; 32 and 0 are for timing, their d_table is
+// wrong.  BRT_K3_MIN_BLOCKS is __launch_bounds__'s blocks-per-SM floor.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+
+#ifndef BRT_K3_TABLE_ADD
+#define BRT_K3_TABLE_ADD 64
+#endif
+#ifndef BRT_K3_MIN_BLOCKS
+#define BRT_K3_MIN_BLOCKS 1
+#endif
 
 namespace {
 
@@ -338,13 +351,31 @@ __device__ __forceinline__ void hit_adjoint(const float o[3], const float d[3],
   grow[3] += g_r;
 }
 
+// Adds a bounce's row cotangent into d_table's row (columns 7 and 10 get
+// none); `sink` is the register the BRT_K3_TABLE_ADD == 0 probe adds into.
+__device__ __forceinline__ void add_row(double* __restrict__ row,
+                                       const float grow[kCols], float& sink) {
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    if (k == 7 || k == 10 || grow[k] == 0.f) continue;
+#if BRT_K3_TABLE_ADD == 64
+    atomicAdd(row + k, static_cast<double>(grow[k]));
+#elif BRT_K3_TABLE_ADD == 32
+    atomicAdd(reinterpret_cast<float*>(row) + k, grow[k]);
+#else
+    sink += grow[k];
+#endif
+  }
+}
+
 template <typename ResT, bool kEdge>
 __device__ __forceinline__ void path_grad(
     const float* __restrict__ tbl, const brt::Cam& c,
     const ResT* __restrict__ res, const ResT* __restrict__ res2,
     const float* __restrict__ g, double* __restrict__ d_tbl, int n_pix, int s,
     int pid, uint32_t seed, uint32_t sample, int max_depth, float t_min,
-    float edge_soft, float inv_spp, int width, int height, float gc[16]) {
+    float edge_soft, float inv_spp, int width, int height, float gc[16],
+    float& sink) {
   const float G[3] = {g[3 * pid] * inv_spp, g[3 * pid + 1] * inv_spp,
                       g[3 * pid + 2] * inv_spp};
   const uint32_t upid = static_cast<uint32_t>(pid);
@@ -453,12 +484,7 @@ __device__ __forceinline__ void path_grad(
     float grow[kCols] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     hit_adjoint<kEdge>(bo, bdir, btp, w, f, edge_soft, bg, G, go, gd, gtp,
                        grow);
-    double* row = d_tbl + static_cast<size_t>(kCols) * rec;
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      if (k != 7 && k != 10 && grow[k] != 0.f)
-        atomicAdd(row + k, static_cast<double>(grow[k]));
-    }
+    add_row(d_tbl + static_cast<size_t>(kCols) * rec, grow, sink);
   }
 
   // ---- camera adjoint: o = co + du u + dv v;  d = T / |T| ----------------
@@ -487,7 +513,7 @@ __device__ __forceinline__ void path_grad(
 }
 
 template <typename ResT, bool kEdge>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, BRT_K3_MIN_BLOCKS)
     k3_replay_grad_kernel(const float* __restrict__ tbl,
                           const float* __restrict__ cam_in,
                           const ResT* __restrict__ res,
@@ -504,14 +530,19 @@ __global__ void __launch_bounds__(kThreads)
   float gc[16];
 #pragma unroll
   for (int k = 0; k < 16; ++k) gc[k] = 0.f;
+  float sink = 0.f;
   if (path < n_paths) {
     const brt::Cam c = brt::load_cam(cam_in);
     const int s = static_cast<int>(path / n_pix);
     const int pid = static_cast<int>(path % n_pix);
     path_grad<ResT, kEdge>(tbl, c, res, res2, g, d_tbl, n_pix, s, pid, seed,
                            sample_base + static_cast<uint32_t>(s), max_depth,
-                           t_min, edge_soft, inv_spp, width, height, gc);
+                           t_min, edge_soft, inv_spp, width, height, gc,
+                           sink);
   }
+#if BRT_K3_TABLE_ADD == 0
+  if (sink == -1.2345e-38f) d_tbl[0] = sink;  // keeps the probe's adds live
+#endif
   // Every lane reaches here (no early return), so full-mask shuffles hold.
   const int lane = threadIdx.x & 31;
 #pragma unroll

@@ -35,19 +35,25 @@ from torch.utils.checkpoint import checkpoint
 
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.core.geometry import sphere_table
-from bevy_raytrace_tpu_torch.kernels.common import _TWO_PI, _cbrt
+from bevy_raytrace_tpu_torch.kernels.common import (
+    _inv_sqrt_guard,
+    _plain_camera,
+    _scatter_vector,
+)
 from bevy_raytrace_tpu_torch.rng.pcg import uniform4
-from bevy_raytrace_tpu_torch.wavefront.render import CAMERA_STREAM, frame_seed
+from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 # Above this many stored bounce-state bytes the replay is checkpointed per
 # bounce instead of stored (~40 float32 of live state per path per bounce).
 _REMAT_BYTES = 4 << 30
 
 
-def _inv_sqrt_guard(n2):
-    """1 / sqrt(max(n2, 1e-20)), correctly rounded in two steps (K3's
-    `inv_sqrt_guard`)."""
-    return 1.0 / torch.sqrt(torch.clamp(n2, min=1e-20))
+def _guarded_sqrt_k(kk):
+    """The refraction sqrt with no gradient below k = 1e-12 (the TIR
+    edge)."""
+    kk_ok = kk > 1e-12
+    return torch.where(kk_ok, torch.sqrt(torch.where(kk_ok, kk, 1.0)),
+                       torch.sqrt(kk).detach())
 
 
 def _replay_bounce(carry, b, pixel_ids, sample_ids, seed, sidx, sidx2, tbl,
@@ -85,48 +91,9 @@ def _replay_bounce(carry, b, pixel_ids, sample_ids, seed, sidx, sidx2, tbl,
     nx, ny, nz = owx * sgn, owy * sgn, owz * sgn
 
     # ---- scatter (every model, selected by kind) -----------------------
-    u1, u2, u3, u4 = uniform4(pixel_ids, sample_ids, b, seed)
-    zs = 1.0 - 2.0 * u1
-    rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
-    ph = _TWO_PI * u2
-    rux, ruy, ruz = rs * torch.cos(ph), rs * torch.sin(ph), zs
-    lx, ly, lz = nx + rux, ny + ruy, nz + ruz
-    deg = (torch.abs(lx) + torch.abs(ly) + torch.abs(lz)) < 1e-8
-    lx, ly, lz = where(deg, nx, lx), where(deg, ny, ly), where(deg, nz, lz)
-
-    ddn = dx * nx + dy * ny + dz * nz
-    rx = dx - 2.0 * ddn * nx
-    ry = dy - 2.0 * ddn * ny
-    rz = dz - 2.0 * ddn * nz
-    fz = fuzz * _cbrt(u3)
-    mx, my, mz = rx + fz * rux, ry + fz * ruy, rz + fz * ruz
-
-    ratio = where(front, 1.0 / ior, ior)
-    cos_t = torch.clamp(-(dx * nx + dy * ny + dz * nz), max=1.0)
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-    r0 = (1.0 - ratio) / (1.0 + ratio)
-    r0 = r0 * r0
-    m1 = 1.0 - cos_t
-    m2 = m1 * m1
-    schlick = r0 + (1.0 - r0) * (m2 * m2 * m1)
-    refl = (ratio * sin_t > 1.0) | (schlick > u4)
-    ppx = ratio * (dx + cos_t * nx)
-    ppy = ratio * (dy + cos_t * ny)
-    ppz = ratio * (dz + cos_t * nz)
-    kk = torch.abs(1.0 - (ppx * ppx + ppy * ppy + ppz * ppz))
-    # The refraction sqrt has no gradient below k = 1e-12 (the TIR edge).
-    kk_ok = kk > 1e-12
-    sqk = where(kk_ok, torch.sqrt(where(kk_ok, kk, 1.0)),
-                torch.sqrt(kk).detach())
-    ex = where(refl, rx, ppx - sqk * nx)
-    ey = where(refl, ry, ppy - sqk * ny)
-    ez = where(refl, rz, ppz - sqk * nz)
-
-    is_lam = kind < 0.5
-    is_met = (kind > 0.5) & (kind < 1.5)
-    vx = where(is_lam, lx, where(is_met, mx, ex))
-    vy = where(is_lam, ly, where(is_met, my, ey))
-    vz = where(is_lam, lz, where(is_met, mz, ez))
+    vx, vy, vz, is_lam, is_met = _scatter_vector(
+        dx, dy, dz, nx, ny, nz, front, kind, fuzz, ior,
+        uniform4(pixel_ids, sample_ids, b, seed), sqrt_k=_guarded_sqrt_k)
     q = _inv_sqrt_guard(vx * vx + vy * vy + vz * vz)
     sx, sy, sz = vx * q, vy * q, vz * q
     scat_ok = ~is_met | ((sx * nx + sy * ny + sz * nz) > 0.0)
@@ -170,35 +137,6 @@ def _replay_bounce(carry, b, pixel_ids, sample_ids, seed, sidx, sidx2, tbl,
             tp_r, tp_g, tp_b, rad_r, rad_g, rad_b, alive_next)
 
 
-def _camera_rays(cam16, config: RenderConfig, pixel_ids, sample_ids, seed):
-    """Thin-lens camera rays as component planes (K3's form of
-    `Camera.generate_rays`): (ox, oy, oz, dx, dy, dz)."""
-    (cox, coy, coz, ux, uy, uz, vx, vy, vz, wx, wy, wz, half_w, half_h,
-     lens_r, focus) = cam16.unbind(0)
-    cu1, cu2, cu3, cu4 = uniform4(pixel_ids, sample_ids, CAMERA_STREAM, seed)
-    # 0-d tensors, so that the division is a true division on every device.
-    fw = torch.tensor(float(config.width), device=pixel_ids.device)
-    fh = torch.tensor(float(config.height), device=pixel_ids.device)
-    px = (pixel_ids % config.width).to(torch.float32)
-    py = (pixel_ids // config.width).to(torch.float32)
-    s_im = (px + cu1) / fw
-    t_im = 1.0 - (py + cu2) / fh
-    ru = torch.sqrt(cu3)
-    phi = _TWO_PI * cu4
-    du = ru * torch.cos(phi) * lens_r
-    dv = ru * torch.sin(phi) * lens_r
-    ox = cox + du * ux + dv * vx
-    oy = coy + du * uy + dv * vy
-    oz = coz + du * uz + dv * vz
-    su = (2.0 * s_im - 1.0) * half_w * focus
-    tv = (2.0 * t_im - 1.0) * half_h * focus
-    tx = cox - focus * wx + su * ux + tv * vx - ox
-    ty = coy - focus * wy + su * uy + tv * vy - oy
-    tz = coz - focus * wz + su * uz + tv * vz - oz
-    q = _inv_sqrt_guard(tx * tx + ty * ty + tz * tz)
-    return ox, oy, oz, tx * q, ty * q, tz * q
-
-
 def replay_paths(camera, config: RenderConfig, pixel_ids, sample_ids, seed,
                  res_db, tbl, remat: bool = True, res2_db=None):
     """Differentiable re-trace of recorded paths -> radiance [K, 3].
@@ -219,8 +157,9 @@ def replay_paths(camera, config: RenderConfig, pixel_ids, sample_ids, seed,
         raise ValueError(
             "edge_softness > 0 requires runner-up residuals (res2) — "
             "record the forward with record_second=True")
-    ox, oy, oz, dx, dy, dz = _camera_rays(camera.pack(), config, pixel_ids,
-                                          sample_ids, seed)
+    ox, oy, oz, dx, dy, dz = _plain_camera(camera.pack(), pixel_ids,
+                                           sample_ids, seed, config.width,
+                                           config.height, _inv_sqrt_guard)
     one = torch.ones_like(ox)
     zero = torch.zeros_like(ox)
     carry = (ox, oy, oz, dx, dy, dz, one, one, one, zero, zero, zero,

@@ -5,7 +5,9 @@ into `bevy_raytrace_tpu_torch/_build/` (git-ignored), under a name keyed by
 a hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one loads the existing `.so`.  The sources expose plain `extern
 "C"` launchers: no PyTorch header is compiled, which keeps a build to
-seconds.  Nothing here runs at import time.
+seconds.  Nothing here runs at import time.  `defines` (macro=value strings,
+passed as -D) build a variant of a library beside it, under its own hash:
+`profile_grad.py` builds K3's measurement probes that way.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 EXTRA_FLAGS = {"k3_replay_grad": ("-fmad=false",)}
 
 _LIBS: dict = {}
-# name -> (seconds, nvcc output) of the builds this process ran.
+# name (then the defines, space-separated) -> (seconds, nvcc output) of the
+# builds this process ran.
 BUILD_LOG: dict = {}
 
 
@@ -40,35 +43,40 @@ def _nvcc() -> str:
     return path
 
 
-def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+def _flags(name: str, defines: tuple = ()) -> tuple:
+    return (NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+            + tuple(f"-D{d}" for d in defines))
 
 
-def _source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(_flags(name)).encode())
+def _key(name: str, defines: tuple) -> str:
+    return " ".join((name, *defines))
+
+
+def _source_hash(name: str, defines: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join(_flags(name, defines)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_source_hash(name)}.so"
+def library_path(name: str, defines: tuple = ()) -> Path:
+    return BUILD_DIR / f"lib{name}-{_source_hash(name, defines)}.so"
 
 
-def load_all(names) -> dict:
+def load_all(names, defines: tuple = ()) -> dict:
     """Build every library of `names` that is missing, one nvcc process
     each, all started together; then load them all -> {name: CDLL}."""
-    names = list(names)
+    names, defines = list(names), tuple(defines)
     procs = {}
     for name in names:
-        out = library_path(name)
-        if name in _LIBS or out.exists():
+        out = library_path(name, defines)
+        if _key(name, defines) in _LIBS or out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp),
+            [_nvcc(), *_flags(name, defines), "-I", str(CSRC), "-o", str(tmp),
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         procs[name] = (proc, time.perf_counter(), tmp, out)
@@ -79,20 +87,22 @@ def load_all(names) -> dict:
             failed.append(f"nvcc failed building {name}:\n{stdout}\n{stderr}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-        BUILD_LOG[name] = (time.perf_counter() - t0, stdout + stderr)
+        BUILD_LOG[_key(name, defines)] = (time.perf_counter() - t0,
+                                          stdout + stderr)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: load(name) for name in names}
+    return {name: load(name, defines) for name in names}
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` as a shared library."""
-    lib = _LIBS.get(name)
+    defines = tuple(defines)
+    lib = _LIBS.get(_key(name, defines))
     if lib is not None:
         return lib
-    out = library_path(name)
+    out = library_path(name, defines)
     if not out.exists():
-        return load_all([name])[name]
+        return load_all([name], defines)[name]
     lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
+    _LIBS[_key(name, defines)] = lib
     return lib

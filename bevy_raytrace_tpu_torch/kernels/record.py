@@ -118,19 +118,17 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, config, res, res2):
     width, height = config.width, config.height
     t_min, t_max = config.t_min, config.t_max
     gx, gy, gz, kq = geom.T.contiguous().unbind(0)
-    px = (pid % width).to(torch.float32)
-    py = (pid // width).to(torch.float32)
-    zero = torch.zeros_like(px)
+    zero = torch.zeros(pid.shape, dtype=torch.float32, device=pid.device)
     fb_r, fb_g, fb_b = zero, zero, zero
     inf = torch.tensor(math.inf, device=pid.device)
 
     for s in range(spp):
         su = sample_base + s
-        ox, oy, oz, dx, dy, dz = _plain_camera(cam, px, py, pid, su, seed,
-                                               width, height)
+        ox, oy, oz, dx, dy, dz = _plain_camera(cam, pid, su, seed, width,
+                                               height)
         tp_r, tp_g, tp_b = zero + 1.0, zero + 1.0, zero + 1.0
         rad_r, rad_g, rad_b = zero, zero, zero
-        alive = torch.ones_like(px, dtype=torch.bool)
+        alive = torch.ones_like(zero, dtype=torch.bool)
 
         for b in range(depth):
             # ---- per-sphere loop, expanded quadratic -------------------

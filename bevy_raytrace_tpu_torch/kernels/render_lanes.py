@@ -100,18 +100,16 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
                  t_min, width, height):
     where = torch.where
     gx, gy, gz, gr2 = geom.T.contiguous().unbind(0)
-    px = (pid % width).to(torch.float32)
-    py = (pid // width).to(torch.float32)
-    zero = torch.zeros_like(px)
+    zero = torch.zeros(pid.shape, dtype=torch.float32, device=pid.device)
     acc_r, acc_g, acc_b, rounds = zero, zero, zero, zero
 
     for s in range(spp):
         su = sample_base + s
         # ---- camera ray (thin lens) ------------------------------------
-        ox, oy, oz, dx, dy, dz = _plain_camera(cam, px, py, pid, su, seed,
-                                               width, height)
+        ox, oy, oz, dx, dy, dz = _plain_camera(cam, pid, su, seed, width,
+                                               height)
         tp_r, tp_g, tp_b = zero + 1.0, zero + 1.0, zero + 1.0
-        alive = torch.ones_like(px, dtype=torch.bool)
+        alive = torch.ones_like(zero, dtype=torch.bool)
 
         for bounce in range(max_depth):
             if bounce and not bool(alive.any()):

@@ -90,9 +90,11 @@ def replay_grad_plain(table, cam16, config: RenderConfig, res, g,
     return d_tbl, d_cam
 
 
-@functools.lru_cache(maxsize=1)
-def _k3_launcher():
-    lib = build.load("k3_replay_grad")
+@functools.lru_cache(maxsize=None)
+def _k3_launcher(defines: tuple = ()):
+    """K3's launcher; `defines` select a measurement probe's build (see
+    csrc/k3_replay_grad.cu)."""
+    lib = build.load("k3_replay_grad", defines)
     fn = lib.brt_k3_replay_grad
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)
@@ -129,13 +131,25 @@ def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
                                  sample_base, res2)
     if device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA (or its twin on CPU), not {device}")
+    out = _launch(_k3_launcher(), table, cam16, config, res, g, frame,
+                  sample_base, res2)
+    replay_grad.launches += 1
+    return out
+
+
+replay_grad.launches = 0
+
+
+def _launch(launch, table, cam16, config: RenderConfig, res, g, frame: int,
+            sample_base: int, res2):
+    """Runs `launch` (a `_k3_launcher`) on checked CUDA operands."""
+    device = table.device
     table, cam16 = table.detach(), cam16.detach()
     g = g.detach().contiguous()
     edge = config.edge_softness > 0.0
     # float64 sums: see csrc/k3_replay_grad.cu "Accumulation".
     d_tbl = torch.zeros(table.shape, dtype=torch.float64, device=device)
     d_cam = torch.zeros((16,), dtype=torch.float64, device=device)
-    launch = _k3_launcher()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = launch(table.data_ptr(), cam16.data_ptr(), res.data_ptr(),
@@ -149,8 +163,4 @@ def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
                      config.width, config.height, stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed with cudaError_t {err}")
-    replay_grad.launches += 1
     return d_tbl.to(torch.float32), d_cam.to(torch.float32)
-
-
-replay_grad.launches = 0

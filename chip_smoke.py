@@ -28,7 +28,12 @@ and fails loudly — a traceback and a nonzero exit — if any phase fails:
      torch replay of the kernel's residuals reconstructing its image;
   9. K3 against its plain twin (autograd of the torch replay) on those
      residuals with a seeded cotangent: d_table and d_cam to rtol 2e-3 of
-     each array's max-abs;
+     each array's max-abs.  Then every other instantiation the main path
+     launches, each against its twin on the same inputs: at the bench's
+     shape with edge_softness 0, K2 recording winners only and value only,
+     and K3 without the silhouette term; and on a 2-sample slice of the
+     flagship gradient (1200x800, samples 128-129 through sample_base), the
+     same three;
  10. inverse rendering at the CLI's size (1200x800, 64 spp, depth 8,
      edge_softness 0.01, config1 perturbed as `cli inverse` does): 3 Adam
      steps with a checkpoint, resumed to 6 steps, and the step-3 checkpoint
@@ -63,13 +68,6 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, reps, warm=True):
     """Mean CUDA-event milliseconds of fn() over `reps` runs (after one
     warm-up run if `warm`) and fn()'s last result."""
@@ -99,7 +97,6 @@ def gradient_phases(dev, smi):
     from bevy_raytrace_tpu_torch import RenderConfig
     from bevy_raytrace_tpu_torch import scenes
     from bevy_raytrace_tpu_torch.inverse import (
-        InverseProblem,
         make_fast_renderer,
         optimize,
         replay_image,
@@ -108,7 +105,7 @@ def gradient_phases(dev, smi):
     from bevy_raytrace_tpu_torch.kernels import record as k2
     from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare, grad_close
-    from bevy_raytrace_tpu_torch.wavefront.render import render
+    from bevy_raytrace_tpu_torch.profile_grad import cli_inverse_problem
 
     # ---- 7. build K2 and K3 ----------------------------------------------
     names = ["k2_record", "k3_replay_grad"]
@@ -123,76 +120,102 @@ def gradient_phases(dev, smi):
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] k2 + k3 in {build_s:.2f} s (in parallel)")
 
-    # ---- 8. K2 vs its twin at the gradient bench's shape -----------------
+    # ---- 8-9. K2 and K3 against their twins --------------------------------
+    checks = {"k2": [], "k3": []}
+
+    def k2_check(label, table, cam16, cfg, sample_base=0, with_residuals=True,
+                 record_second=False):
+        """K2 vs its twin on one input: image under COMPILED, at most 2% of
+        residual entries differing.  Returns the kernel's outputs."""
+        kw = dict(sample_base=sample_base, with_residuals=with_residuals,
+                  record_second=record_second)
+        ms, (img, res, res2) = cuda_ms(
+            lambda: k2.record_frame(table, cam16, cfg, 1, **kw), 3)
+        plain_ms, (pimg, pres, pres2) = cuda_ms(
+            lambda: k2.record_frame_plain(table, cam16, cfg, 1, **kw), 1,
+            warm=False)
+        img_vs = compare(img.cpu().numpy(), pimg.cpu().numpy(), COMPILED)
+        off = [float((a != b).float().mean())
+               for a, b in ((res, pres), (res2, pres2)) if a is not None]
+        log(f"[k2] {label}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms; "
+            f"image vs twin {img_vs}; residuals differing: "
+            f"{[f'{o:.5%}' for o in off]}")
+        check(img_vs["ok"], f"K2 {label}: image vs twin {img_vs}")
+        check(all(o <= 0.02 for o in off),
+              f"K2 {label}: residuals differ from the twin's on {off}")
+        check(res is None or res.dtype == torch.int16,
+              "residuals are not int16")
+        checks["k2"].append({"shape": label, "max_abs_err":
+                             img_vs["max_abs_err"], "residuals_off": off,
+                             "ms": ms, "plain_ms": plain_ms})
+        return img, res, res2
+
+    def k3_check(label, table, cam16, cfg, res, res2, sample_base=0):
+        """K3 vs its twin on K2's residuals with a seeded cotangent: d_table
+        and d_cam to rtol 2e-3 of the larger max-abs."""
+        g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (cfg.height, cfg.width, 3)).astype(np.float32)).to(dev)
+        ms, (d_tbl, d_cam) = cuda_ms(
+            lambda: k3.replay_grad(table, cam16, cfg, res, g, 1, sample_base,
+                                   res2=res2), 3)
+        plain_ms, (p_tbl, p_cam) = cuda_ms(
+            lambda: k3.replay_grad_plain(table, cam16, cfg, res, g, 1,
+                                         sample_base, res2=res2), 1,
+            warm=False)
+        glob = max(float(p_tbl.abs().max()), float(p_cam.abs().max()))
+        tbl_vs = grad_close(d_tbl.cpu(), p_tbl.cpu(), glob=glob)
+        cam_vs = grad_close(d_cam.cpu(), p_cam.cpu(), glob=glob)
+        log(f"[k3] {label}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms; "
+            f"d_table vs twin {tbl_vs}, d_cam vs twin {cam_vs}")
+        check(tbl_vs["ok"] and cam_vs["ok"],
+              f"K3 {label}: cotangents disagree with the twin's (rtol 2e-3)")
+        checks["k3"].append({
+            "shape": label, "rel_err": [tbl_vs["rel_err"], cam_vs["rel_err"]],
+            "max_abs_err": max(tbl_vs["max_abs_err"], cam_vs["max_abs_err"]),
+            "ms": ms, "plain_ms": plain_ms})
+
+    # The gradient bench's shape (400x300, 16 spp, depth 8, rtiow_final),
+    # with edge_softness 0.01 (the inverse path's instantiations: runner-up
+    # recorded, the silhouette adjoint) and 0 (the flagship gradient's).
     cfg = RenderConfig(width=400, height=300, samples_per_pixel=16,
                        max_depth=8, edge_softness=0.01)
+    cfg0 = cfg.replace(edge_softness=0.0)
     scene = scenes.rtiow_final_scene(0, device=dev)[0]
     cam = scenes.rtiow_final_camera(cfg.aspect, device=dev)
     table, cam16 = k2._operands(scene, cam)
-    k2_ms, (img, res, res2) = cuda_ms(
-        lambda: k2.record_frame(table, cam16, cfg, 1, record_second=True), 3)
-    k2_plain_ms, (pimg, pres, pres2) = cuda_ms(
-        lambda: k2.record_frame_plain(table, cam16, cfg, 1,
-                                      record_second=True), 1, warm=False)
-    img_vs = compare(img.cpu().numpy(), pimg.cpu().numpy(), COMPILED)
-    res_off = float((res != pres).float().mean())
-    res2_off = float((res2 != pres2).float().mean())
-    log(f"[k2] {scene.count} spheres, {cfg.width}x{cfg.height}x"
-        f"{cfg.samples_per_pixel} depth {cfg.max_depth}: kernel "
-        f"{k2_ms:.3f} ms, twin {k2_plain_ms:.1f} ms; image vs twin {img_vs}; "
-        f"residuals differing: res {res_off:.5%}, res2 {res2_off:.5%}")
-    check(img_vs["ok"], f"K2 image vs twin {img_vs}")
-    check(res.dtype == torch.int16, f"residual dtype {res.dtype}")
-    check(res_off <= 0.02 and res2_off <= 0.02,
-          f"K2 residuals differ from the twin's on {res_off:.3%} / "
-          f"{res2_off:.3%} of entries")
-    del pimg, pres, pres2
+    bench = f"rtiow {cfg.width}x{cfg.height}x{cfg.samples_per_pixel} depth 8"
+    img, res, res2 = k2_check(f"{bench} record_second", table, cam16, cfg,
+                              record_second=True)
     with torch.no_grad():
         rep = replay_image(scene, cam, cfg, res, 1, res2=res2)
     rep_vs = compare(rep.cpu().numpy(), img.cpu().numpy(), COMPILED)
     log(f"[k2] torch replay of the kernel's residuals vs its image {rep_vs}")
     check(rep_vs["ok"], f"replay does not reconstruct the K2 image {rep_vs}")
+    k3_check(f"{bench} edge 0.01", table, cam16, cfg, res, res2)
+    del res, res2
+    _, res, _ = k2_check(f"{bench} record", table, cam16, cfg0)
+    k2_check(f"{bench} value only", table, cam16, cfg0, with_residuals=False)
+    k3_check(f"{bench} edge 0", table, cam16, cfg0, res, None)
+    del res
 
-    # ---- 9. K3 vs its twin on K2's residuals ------------------------------
-    gen = np.random.default_rng(0)
-    g = torch.from_numpy(gen.standard_normal(
-        (cfg.height, cfg.width, 3)).astype(np.float32)).to(dev)
-    k3_ms, (d_tbl, d_cam) = cuda_ms(
-        lambda: k3.replay_grad(table, cam16, cfg, res, g, 1, res2=res2), 3)
-    k3_plain_ms, (p_tbl, p_cam) = cuda_ms(
-        lambda: k3.replay_grad_plain(table, cam16, cfg, res, g, 1, res2=res2),
-        1, warm=False)
-    glob = max(float(p_tbl.abs().max()), float(p_cam.abs().max()))
-    tbl_vs = grad_close(d_tbl.cpu(), p_tbl.cpu(), glob=glob)
-    cam_vs = grad_close(d_cam.cpu(), p_cam.cpu(), glob=glob)
-    log(f"[k3] kernel {k3_ms:.3f} ms, twin {k3_plain_ms:.1f} ms; d_table "
-        f"vs twin {tbl_vs}, d_cam vs twin {cam_vs}")
-    check(tbl_vs["ok"] and cam_vs["ok"],
-          "K3 cotangents disagree with the twin's (rtol 2e-3)")
-    del res, res2, p_tbl, p_cam
+    # A 2-sample slice of the flagship gradient (1200x800, samples 128-129
+    # through sample_base, as grad_spp_chunk's re-recording runs them).
+    sl = RenderConfig(width=1200, height=800, samples_per_pixel=2,
+                      max_depth=8)
+    sl_table, sl_cam16 = k2._operands(
+        scene, scenes.rtiow_final_camera(sl.aspect, device=dev))
+    label = "rtiow 1200x800 samples 128-129 depth 8"
+    _, res, _ = k2_check(f"{label} record", sl_table, sl_cam16, sl, 128)
+    k2_check(f"{label} value only", sl_table, sl_cam16, sl, 128,
+             with_residuals=False)
+    k3_check(f"{label} edge 0", sl_table, sl_cam16, sl, res, None, 128)
+    del res
 
     # ---- 10. inverse rendering at the CLI's size --------------------------
     k2.record_frame.launches = 0
     k3.replay_grad.launches = 0
-    inv_cfg = RenderConfig(width=1200, height=800, samples_per_pixel=64,
-                           max_depth=8)
-    opt_cfg = inv_cfg.replace(edge_softness=0.01)
-    scene_true = scenes.baseline_config1_scene(device=dev)[0]
-    camera = scenes.baseline_config1_camera(inv_cfg.aspect, device=dev)
-    with torch.no_grad():
-        target = render(scene_true, camera, inv_cfg, 9999)
-    albedo = scene_true.materials.albedo.clone()
-    albedo[1] = torch.tensor([0.2, 0.8, 0.6], device=dev)
-    centers = scene_true.centers.clone()
-    centers[1] += torch.tensor([0.25, -0.1, 0.1], device=dev)
-    scene_bad = dataclasses.replace(
-        scene_true, centers=centers,
-        materials=dataclasses.replace(scene_true.materials, albedo=albedo))
-    fast = make_fast_renderer(opt_cfg, backward="kernel")
-    problem = InverseProblem(
-        config=opt_cfg, camera=camera, target=target,
-        optimizable=("centers", "albedo"),
-        render_fn=lambda sc, c, cf, fr: fast(sc, c, fr))
+    scene_bad, scene_true, problem = cli_inverse_problem(dev)
+    inv_cfg = problem.config
     with tempfile.TemporaryDirectory() as tmp:
         ck, ck3 = os.path.join(tmp, "inverse.npz"), os.path.join(tmp, "s3.npz")
         t0 = time.perf_counter()
@@ -263,21 +286,23 @@ def gradient_phases(dev, smi):
     check(k2_launches > 0 and k3_launches > 0,
           "K2 or K3 was not launched by the inverse-rendering path")
 
+    def entry(name, source, replaces, launches, ks):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in ks),
+                "ms": ks[0]["ms"], "plain_ms": ks[0]["plain_ms"],
+                "checks": ks}
+
     entries = [
-        {"name": "k2_record", "route": "cuda",
-         "source": "bevy_raytrace_tpu_torch/csrc/k2_record.cu",
-         "replaces": "bevy_raytrace_tpu/kernels/pallas_render.py:123",
-         "launches": k2_launches, "max_abs_err": img_vs["max_abs_err"],
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "k3_replay_grad", "route": "cuda",
-         "source": "bevy_raytrace_tpu_torch/csrc/k3_replay_grad.cu",
-         "replaces": "bevy_raytrace_tpu/kernels/replay_grad.py:74",
-         "launches": k3_launches,
-         "max_abs_err": max(tbl_vs["max_abs_err"], cam_vs["max_abs_err"]),
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        entry("k2_record", "bevy_raytrace_tpu_torch/csrc/k2_record.cu",
+              "bevy_raytrace_tpu/kernels/pallas_render.py:123", k2_launches,
+              checks["k2"]),
+        entry("k3_replay_grad",
+              "bevy_raytrace_tpu_torch/csrc/k3_replay_grad.cu",
+              "bevy_raytrace_tpu/kernels/replay_grad.py:74", k3_launches,
+              checks["k3"]),
     ]
-    stats = {"grad_build_s": build_s, "k2_residual_off": [res_off, res2_off],
-             "k3_rel_err": [tbl_vs["rel_err"], cam_vs["rel_err"]], "inverse_losses": losses,
+    stats = {"grad_build_s": build_s, "inverse_losses": losses,
              "inverse_s_per_step": step_s, "inverse_paths_per_s": inv_pps,
              "flagship_grad_s": {k: v[1] for k, v in flag.items()},
              "flagship_grad_paths_per_s": {k: v[2] for k, v in flag.items()}}
@@ -297,6 +322,7 @@ def main() -> int:
     from bevy_raytrace_tpu_torch.kernels import build
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare
+    from bevy_raytrace_tpu_torch.profile_grad import smi_line
     from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render
 

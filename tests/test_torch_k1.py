@@ -177,3 +177,17 @@ def test_wrapper_rejects_bad_operands():
         k1.render_lanes(geom, attr, c16, pids, 2**32, *args[1:])
     fb, ln = k1.render_lanes(geom, attr, c16, pids, *args)
     assert fb.shape == (256, 3) and ln.shape == (256,)
+
+
+def test_build_variants_get_their_own_library():
+    """`-D` variants of a kernel build beside it under their own hash; the
+    kernel's own library path does not depend on the variants."""
+    from bevy_raytrace_tpu_torch.kernels import build as kbuild
+
+    name = "k3_replay_grad"
+    plain = kbuild.library_path(name)
+    probe = kbuild.library_path(name, ("BRT_K3_TABLE_ADD=0",))
+    assert plain == kbuild.library_path(name, ())
+    assert probe != plain and probe.parent == plain.parent
+    assert "-DBRT_K3_TABLE_ADD=0" in kbuild._flags(name, ("BRT_K3_TABLE_ADD=0",))
+    assert kbuild._key(name, ()) == name
