@@ -10,10 +10,15 @@ Public API:
     scenes.*  (scene builders), wavefront.Renderer (sessions),
     kernels.render_lanes (the K1 kernel and its host side),
     inverse.*  (render_loss, make_fast_renderer, InverseProblem, optimize:
-    inverse rendering through the K2 and K3 kernels)
+    inverse rendering through the K2, K3 and K4 kernels),
+    shard.*  (one process per device: make_mesh, render_sharded,
+    render_mxu_sharded) and inverse.make_fast_renderer_sharded,
+    default_device, set_default_device  (scenes, cameras and renderers live on the
+    CUDA device unless the caller asks for the CPU)
 """
 
 from bevy_raytrace_tpu_torch.config import RenderConfig
+from bevy_raytrace_tpu_torch.device import default_device, set_default_device
 from bevy_raytrace_tpu_torch.core.types import Materials, Ray, Scene
 from bevy_raytrace_tpu_torch.core.camera import Camera
 from bevy_raytrace_tpu_torch.scenes.registry import MaterialRegistry
@@ -29,5 +34,7 @@ __all__ = [
     "Ray",
     "MaterialRegistry",
     "render",
+    "default_device",
+    "set_default_device",
     "__version__",
 ]

@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from bevy_raytrace_tpu_torch.device import resolve
+
 # Material kind encoding (the reference's integer encoding).
 LAMBERTIAN = 0
 METALLIC = 1
@@ -101,8 +103,10 @@ def _tensor(v, dtype, device):
 
 
 def make_scene(centers, radii, material_id, albedo, kind, fuzz, ior,
-               device="cpu") -> Scene:
-    """Build a Scene from array-likes with dtype normalization."""
+               device=None) -> Scene:
+    """Build a Scene from array-likes with dtype normalization, on `device`
+    (None: `device.default_device()`, the CUDA device)."""
+    device = resolve(device)
     f32, i32 = torch.float32, torch.int32
     return Scene(
         centers=_tensor(centers, f32, device).reshape(-1, 3),

@@ -1,10 +1,15 @@
 // K2 on Hopper: the recording forward of the fast gradient path, one thread
-// per pixel.
+// per pixel of the stripe.
 //
 // Replaces bevy_raytrace_tpu/kernels/pallas_render.py::_make_kernel (the
 // TPU's v1 kernel, launched by render_pallas) in its with_residuals form.  It
 // computes what that kernel computes:
 //
+//   * thread i < n_pix renders the ABSOLUTE pixel pixel_base + i (the v1
+//     kernel's stripe mode, pixel_base / num_local): the RNG counters and
+//     (px, py) come from the absolute id, img and the residuals are indexed
+//     by the local i with stride n_pix.  A whole frame is pixel_base 0,
+//     n_pix = width * height;
 //   * for each sample s in order 0..spp-1: a thin-lens camera ray keyed on
 //     (pixel, sample_base + s, CAMERA_STREAM, seed), then max_depth rounds of
 //     (per-sphere loop -> shade);
@@ -16,7 +21,7 @@
 //     hit point uses that t as it is: unlike K1 there is no exact-t
 //     recompute, so the image matches the JAX K2's, not K1's;
 //   * with RECORD >= 1 the winner index of every (sample, bounce, pixel) is
-//     stored in res[s, b, pid] (-1 = miss, or a path already dead), and with
+//     stored in res[s, b, i] (-1 = miss, or a path already dead), and with
 //     RECORD == 2 the runner-up in res2: the nearest other hit, by the v1
 //     kernel's rule (a sphere that beats the winner demotes it to runner-up;
 //     an exact tie with the current winner never becomes runner-up);
@@ -26,13 +31,13 @@
 //     accumulation across its spp grid axis does.
 //
 // Left out, as TPU devices or later work: the (tile_rows, 128) plane layout
-// and unroll padding, skip_dead_tiles, the cluster-culled broad phase
-// (`clusters=`) and stripe mode (`pixel_base`/`num_local`).
+// and unroll padding, skip_dead_tiles, and the cluster-culled broad phase
+// (`clusters=`).
 //
 // What bounds it on an H100: fp32 issue in the sphere loop and divergence
 // between the paths of a warp, as for K1.  The residual stores are 2 (int16)
 // or 4 (int32) bytes per (sample, bounce, pixel), written with consecutive
-// threads on consecutive pids, so each warp store is one coalesced
+// threads on consecutive pixels, so each warp store is one coalesced
 // transaction; at 1200x800x256x8 that is 3.9 GB of int16, written once.
 
 #include <cuda_runtime.h>
@@ -51,14 +56,16 @@ template <typename ResT, int RECORD>
 __global__ void __launch_bounds__(kThreads)
     k2_record_kernel(const float4* __restrict__ geom,
                      const float4* __restrict__ attr, int n_spheres,
-                     const float* __restrict__ cam_in, int n_pix,
-                     float* __restrict__ img, ResT* __restrict__ res,
+                     const float* __restrict__ cam_in, int pixel_base,
+                     int n_pix, float* __restrict__ img,
+                     ResT* __restrict__ res,
                      ResT* __restrict__ res2, uint32_t seed,
                      uint32_t sample_base, int spp, int max_depth, float t_min,
                      float t_max, int width, int height) {
-  const int pid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pid >= n_pix) return;
+  const int i_loc = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i_loc >= n_pix) return;
   const brt::Cam c = brt::load_cam(cam_in);
+  const int pid = pixel_base + i_loc;
   const uint32_t upid = static_cast<uint32_t>(pid);
   const float px = static_cast<float>(pid % width);
   const float py = static_cast<float>(pid / width);
@@ -79,7 +86,7 @@ __global__ void __launch_bounds__(kThreads)
 
     for (int b = 0; b < max_depth; ++b) {
       const size_t slot =
-          (static_cast<size_t>(s) * max_depth + b) * n_pix + pid;
+          (static_cast<size_t>(s) * max_depth + b) * n_pix + i_loc;
       if (!alive) {
         if (RECORD >= 1) res[slot] = static_cast<ResT>(-1);
         if (RECORD == 2) res2[slot] = static_cast<ResT>(-1);
@@ -167,20 +174,21 @@ __global__ void __launch_bounds__(kThreads)
     acc_b += rad_b;
   }
   const float fspp = static_cast<float>(spp);
-  img[3 * pid + 0] = acc_r / fspp;
-  img[3 * pid + 1] = acc_g / fspp;
-  img[3 * pid + 2] = acc_b / fspp;
+  img[3 * i_loc + 0] = acc_r / fspp;
+  img[3 * i_loc + 1] = acc_g / fspp;
+  img[3 * i_loc + 2] = acc_b / fspp;
 }
 
 template <typename ResT, int RECORD>
 int launch(const void* geom, const void* attr, int n_spheres, const void* cam,
-           int n_pix, void* img, void* res, void* res2, unsigned int seed,
+           int pixel_base, int n_pix, void* img, void* res, void* res2,
+           unsigned int seed,
            unsigned int sample_base, int spp, int max_depth, float t_min,
            float t_max, int width, int height, cudaStream_t stream) {
   const int blocks = (n_pix + kThreads - 1) / kThreads;
   k2_record_kernel<ResT, RECORD><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float4*>(geom), static_cast<const float4*>(attr),
-      n_spheres, static_cast<const float*>(cam), n_pix,
+      n_spheres, static_cast<const float*>(cam), pixel_base, n_pix,
       static_cast<float*>(img), static_cast<ResT*>(res),
       static_cast<ResT*>(res2), seed, sample_base, spp, max_depth, t_min,
       t_max, width, height);
@@ -193,20 +201,22 @@ int launch(const void* geom, const void* attr, int n_spheres, const void* cam,
 // float4, cam [16] float, img [n_pix, 3] float (the mean over spp), res and
 // res2 [spp, max_depth, n_pix] of res_bytes (2: int16, 4: int32) each.
 // record: 0 = image only (res, res2 unused), 1 = res, 2 = res and res2.
+// Thread i renders the absolute pixel pixel_base + i.
 // Returns the launch's cudaError_t, or cudaErrorInvalidValue for arguments
 // it does not take; the kernel itself runs asynchronously.
 extern "C" int brt_k2_record(const void* geom, const void* attr,
-                             int n_spheres, const void* cam, int n_pix,
-                             void* img, void* res, void* res2, int res_bytes,
+                             int n_spheres, const void* cam, int pixel_base,
+                             int n_pix, void* img, void* res, void* res2,
+                             int res_bytes,
                              int record, unsigned int seed,
                              unsigned int sample_base, int spp, int max_depth,
                              float t_min, float t_max, int width, int height,
                              void* stream) {
   if (n_pix <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BRT_K2_ARGS                                                          \
-  geom, attr, n_spheres, cam, n_pix, img, res, res2, seed, sample_base, spp, \
-      max_depth, t_min, t_max, width, height, st
+#define BRT_K2_ARGS                                                       \
+  geom, attr, n_spheres, cam, pixel_base, n_pix, img, res, res2, seed,    \
+      sample_base, spp, max_depth, t_min, t_max, width, height, st
   if (record == 0) return launch<int16_t, 0>(BRT_K2_ARGS);
   if (res_bytes == 2 && record == 1) return launch<int16_t, 1>(BRT_K2_ARGS);
   if (res_bytes == 2 && record == 2) return launch<int16_t, 2>(BRT_K2_ARGS);

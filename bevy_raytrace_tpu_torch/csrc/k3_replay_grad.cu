@@ -5,6 +5,11 @@
 // fused backward, launched by replay_grad).  Given the image cotangent g and
 // the winner residuals K2 recorded, it returns the cotangents of the sphere
 // table [S, 11] and of the 16 packed camera scalars, with 1/spp folded in.
+// In stripe mode (pixel_base, n_pix = the stripe's pixel count) g and the
+// residuals hold one stripe, indexed by the local pixel, while the path's
+// RNG counters and camera ray come from the absolute pixel pixel_base + i;
+// the result is then the stripe's partial sum, which the caller adds to the
+// other stripes' (one all-reduce in inverse/shard_grad.py).
 // The TPU kernel takes jax.vjp of its replayed trace inside the kernel; CUDA
 // has no autodiff, so the adjoint below is derived by hand from
 // inverse/fast_grad.py::replay_paths, step by step, with the same derivative
@@ -372,19 +377,23 @@ template <typename ResT, bool kEdge>
 __device__ __forceinline__ void path_grad(
     const float* __restrict__ tbl, const brt::Cam& c,
     const ResT* __restrict__ res, const ResT* __restrict__ res2,
-    const float* __restrict__ g, double* __restrict__ d_tbl, int n_pix, int s,
-    int pid, uint32_t seed, uint32_t sample, int max_depth, float t_min,
+    const float* __restrict__ g, double* __restrict__ d_tbl, int pixel_base,
+    int n_pix, int s, int pid, uint32_t seed, uint32_t sample, int max_depth,
+    float t_min,
     float edge_soft, float inv_spp, int width, int height, float gc[16],
     float& sink) {
   const float G[3] = {g[3 * pid] * inv_spp, g[3 * pid + 1] * inv_spp,
                       g[3 * pid + 2] * inv_spp};
-  const uint32_t upid = static_cast<uint32_t>(pid);
+  // g and the residuals are indexed by the local pid; the RNG counters and
+  // the pixel's coordinates come from its absolute id.
+  const int apid = pixel_base + pid;
+  const uint32_t upid = static_cast<uint32_t>(apid);
 
   // ---- camera ray, keeping what its adjoint reads ------------------------
   uint32_t ca = upid, cb = sample, cc = brt::CAMERA_STREAM, cd = seed;
   brt::pcg4d(ca, cb, cc, cd);
-  const float px = static_cast<float>(pid % width);
-  const float py = static_cast<float>(pid / width);
+  const float px = static_cast<float>(apid % width);
+  const float py = static_cast<float>(apid / width);
   const float s_im = (px + brt::to_unit(ca)) / static_cast<float>(width);
   const float t_im = 1.0f - (py + brt::to_unit(cb)) / static_cast<float>(height);
   const float ru = sqrtf(brt::to_unit(cc));
@@ -520,8 +529,8 @@ __global__ void __launch_bounds__(kThreads, BRT_K3_MIN_BLOCKS)
                           const ResT* __restrict__ res2,
                           const float* __restrict__ g,
                           double* __restrict__ d_tbl,
-                          double* __restrict__ d_cam, int n_pix,
-                          long long n_paths, uint32_t seed,
+                          double* __restrict__ d_cam, int pixel_base,
+                          int n_pix, long long n_paths, uint32_t seed,
                           uint32_t sample_base, int max_depth, float t_min,
                           float edge_soft, float inv_spp, int width,
                           int height) {
@@ -535,7 +544,8 @@ __global__ void __launch_bounds__(kThreads, BRT_K3_MIN_BLOCKS)
     const brt::Cam c = brt::load_cam(cam_in);
     const int s = static_cast<int>(path / n_pix);
     const int pid = static_cast<int>(path % n_pix);
-    path_grad<ResT, kEdge>(tbl, c, res, res2, g, d_tbl, n_pix, s, pid, seed,
+    path_grad<ResT, kEdge>(tbl, c, res, res2, g, d_tbl, pixel_base, n_pix, s,
+                           pid, seed,
                            sample_base + static_cast<uint32_t>(s), max_depth,
                            t_min, edge_soft, inv_spp, width, height, gc,
                            sink);
@@ -558,7 +568,8 @@ __global__ void __launch_bounds__(kThreads, BRT_K3_MIN_BLOCKS)
 template <typename ResT, bool kEdge>
 int launch(const void* tbl, const void* cam, const void* res,
            const void* res2, const void* g, void* d_tbl, void* d_cam,
-           int n_pix, int spp, unsigned int seed, unsigned int sample_base,
+           int pixel_base, int n_pix, int spp, unsigned int seed,
+           unsigned int sample_base,
            int max_depth, float t_min, float edge_soft, float inv_spp,
            int width, int height, cudaStream_t stream) {
   const long long n_paths = static_cast<long long>(spp) * n_pix;
@@ -568,7 +579,8 @@ int launch(const void* tbl, const void* cam, const void* res,
           static_cast<const float*>(tbl), static_cast<const float*>(cam),
           static_cast<const ResT*>(res), static_cast<const ResT*>(res2),
           static_cast<const float*>(g), static_cast<double*>(d_tbl),
-          static_cast<double*>(d_cam), n_pix, n_paths, seed, sample_base,
+          static_cast<double*>(d_cam), pixel_base, n_pix, n_paths, seed,
+          sample_base,
           max_depth, t_min, edge_soft, inv_spp, width, height);
   return static_cast<int>(cudaGetLastError());
 }
@@ -579,14 +591,15 @@ int launch(const void* tbl, const void* cam, const void* res,
 // cam [16] float, res and res2 [spp, max_depth, n_pix] of res_bytes (2:
 // int16, 4: int32), g [n_pix, 3] float, d_tbl [S, 11] and d_cam [16] double,
 // which the kernel ADDS into (the caller zeroes them).  res2 is read only
-// when edge_soft > 0.  Returns the launch's cudaError_t, or
+// when edge_soft > 0.  Path (s, i) is the absolute pixel pixel_base + i.  Returns the launch's cudaError_t, or
 // cudaErrorInvalidValue for arguments it does not take; the kernel itself
 // runs asynchronously.
 extern "C" int brt_k3_replay_grad(const void* tbl, const void* cam,
                                   const void* res, const void* res2,
                                   int res_bytes, const void* g, void* d_tbl,
-                                  void* d_cam, int n_pix, int spp,
-                                  unsigned int seed, unsigned int sample_base,
+                                  void* d_cam, int pixel_base, int n_pix,
+                                  int spp, unsigned int seed,
+                                  unsigned int sample_base,
                                   int max_depth, float t_min, float edge_soft,
                                   float inv_spp, int width, int height,
                                   void* stream) {
@@ -596,8 +609,8 @@ extern "C" int brt_k3_replay_grad(const void* tbl, const void* cam,
     return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BRT_K3_ARGS                                                           \
-  tbl, cam, res, res2, g, d_tbl, d_cam, n_pix, spp, seed, sample_base,        \
-      max_depth, t_min, edge_soft, inv_spp, width, height, st
+  tbl, cam, res, res2, g, d_tbl, d_cam, pixel_base, n_pix, spp, seed,         \
+      sample_base, max_depth, t_min, edge_soft, inv_spp, width, height, st
   const bool edge = edge_soft > 0.f;
   if (res_bytes == 2)
     return edge ? launch<int16_t, true>(BRT_K3_ARGS)

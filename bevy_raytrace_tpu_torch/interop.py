@@ -14,10 +14,11 @@ import torch
 
 from bevy_raytrace_tpu_torch.core.camera import Camera
 from bevy_raytrace_tpu_torch.core.types import Scene, make_scene
+from bevy_raytrace_tpu_torch.device import resolve
 
 
 def scene_from_arrays(centers, radii, material_id, albedo, kind, fuzz, ior,
-                      device="cpu") -> Scene:
+                      device=None) -> Scene:
     """The JAX `Scene` leaves as array-likes -> a Scene on `device`."""
     # np.array copies: arrays exported by JAX are read-only.
     return make_scene(*(np.array(a) for a in (
@@ -33,7 +34,7 @@ def scene_to_arrays(scene: Scene):
 
 
 def camera_from_arrays(origin, u, v, w, half_width, half_height, lens_radius,
-                       focus_dist, device="cpu") -> Camera:
+                       focus_dist, device=None) -> Camera:
     """The JAX `Camera` leaves as array-likes -> a Camera on `device`."""
     return Camera.from_packed(np.concatenate([
         np.asarray(a, np.float32).reshape(-1) for a in (
@@ -41,21 +42,22 @@ def camera_from_arrays(origin, u, v, w, half_width, half_height, lens_radius,
             focus_dist)]), device=device)
 
 
-def scene_from_reference(scene, device="cpu") -> Scene:
+def scene_from_reference(scene, device=None) -> Scene:
     """A `bevy_raytrace_tpu` Scene -> the same Scene here."""
     m = scene.materials
     return scene_from_arrays(scene.centers, scene.radii, scene.material_id,
                              m.albedo, m.kind, m.fuzz, m.ior, device=device)
 
 
-def camera_from_reference(camera, device="cpu") -> Camera:
+def camera_from_reference(camera, device=None) -> Camera:
     """A `bevy_raytrace_tpu` Camera -> the same Camera here (via pack())."""
     return Camera.from_packed(np.asarray(camera.pack()), device=device)
 
 
-def params_from_reference(params, device="cpu"):
+def params_from_reference(params, device=None):
     """An `InverseProblem` parameter dict of the JAX package ({name: array})
     -> {name: float32 tensor on `device`}."""
+    device = resolve(device)
     return {n: torch.tensor(np.array(v, np.float32), device=device)
             for n, v in params.items()}
 
@@ -65,9 +67,15 @@ def params_to_arrays(params):
     return {n: t.detach().cpu().numpy() for n, t in params.items()}
 
 
-def residuals_from_reference(res, num_pixels: int, device="cpu"):
+def residuals_from_reference(res, num_pixels: int, device=None):
     """Residuals of the JAX recorders (int16/int32 [spp, depth, P >=
-    num_pixels]) -> an int tensor [spp, depth, num_pixels] on `device`."""
+    num_pixels]) -> an int tensor [spp, depth, num_pixels] on `device`.
+
+    The JAX recorders pad the pixel axis to whole tiles.  For a stripe
+    recorded with `num_local`, pass `num_pixels=num_local`: the stripe's
+    [spp, depth, p_pad_local] comes back as [:, :, :num_local], the layout
+    the port's stripe-mode K3 reads."""
+    device = resolve(device)
     r = np.array(res)
     if r.dtype not in (np.int16, np.int32):
         raise TypeError(f"residuals must be int16 or int32, got {r.dtype}")

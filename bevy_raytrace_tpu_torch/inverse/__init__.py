@@ -7,6 +7,9 @@ from bevy_raytrace_tpu_torch.inverse.optimize import (
     InverseProblem,
     optimize,
 )
+from bevy_raytrace_tpu_torch.inverse.shard_grad import (
+    make_fast_renderer_sharded,
+)
 
 __all__ = [
     "image_l2_loss",
@@ -14,5 +17,6 @@ __all__ = [
     "InverseProblem",
     "optimize",
     "make_fast_renderer",
+    "make_fast_renderer_sharded",
     "replay_image",
 ]

@@ -1,11 +1,13 @@
-"""Fast differentiable rendering: a recording forward (K2) and a replay
-backward (K3) with no sphere search.
+"""Fast differentiable rendering: a recording forward (K2 or K4) and a
+replay backward (K3) with no sphere search.
 
 Mirror of `bevy_raytrace_tpu/inverse/fast_grad.py`.
 
-  forward   K2 (`kernels/record.py`) renders the image and records, per
-            (sample, bounce, pixel), the index of the sphere the path hit
-            (-1 = miss), plus the runner-up when `edge_softness > 0`.
+  forward   K2 (`kernels/record.py`, forward="pallas") or K4
+            (`kernels/sweep_record.py`, forward="sweep") renders the image
+            and records, per (sample, bounce, pixel), the index of the
+            sphere the path hit (-1 = miss), plus the runner-up when
+            `edge_softness > 0`.
   backward  the recorded paths are replayed WITHOUT any nearest-hit search:
             the winner is read from the residual, its exact `t` recomputed
             in closed form, the same PCG4D counters replay the same random
@@ -19,9 +21,10 @@ scatter_ok) are frozen at their sampled values; continuous quantities
 differentiate through; `edge_softness` adds the two-sided soft-silhouette
 term, which only involves the hit sphere and the recorded runner-up.
 
-Deliberate divergences from the reference: `forward="sweep"` (K4) and
-`clusters=` raise NotImplementedError (ROADMAP.md), and an unsupported
-combination of options raises instead of being ignored.  The reference's
+Deliberate divergences from the reference: `clusters=` raises
+NotImplementedError (ROADMAP.md), and an unsupported combination of options
+raises instead of being ignored (the reference silently drops
+`forward="sweep"` when `grad_spp_chunk > 0`).  The reference's
 `_permuted_table` is `_scene_table` here: without a cluster plan there is
 no permutation.
 """
@@ -29,6 +32,7 @@ no permutation.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -177,13 +181,17 @@ def replay_paths(camera, config: RenderConfig, pixel_ids, sample_ids, seed,
 
 
 def _replay_sum(camera, config: RenderConfig, res, tbl, seed: int,
-                sample_base: int = 0, res2=None, remat=None):
-    """Sum over the recorded samples of the replayed radiance -> [P, 3]."""
-    num_pixels = config.num_pixels
+                sample_base: int = 0, res2=None, remat=None,
+                pixel_base: int = 0, num_local=None):
+    """Sum over the recorded samples of the replayed radiance -> [P, 3];
+    the pixels are [pixel_base, pixel_base + num_local), the whole frame
+    when `num_local` is None."""
+    num_pixels = config.num_pixels if num_local is None else num_local
     spp = config.samples_per_pixel
     if remat is None:
         remat = spp * config.max_depth * num_pixels * 40 * 4 > _REMAT_BYTES
-    pixel_ids = torch.arange(num_pixels, dtype=torch.int64, device=tbl.device)
+    pixel_ids = torch.arange(pixel_base, pixel_base + num_pixels,
+                             dtype=torch.int64, device=tbl.device)
     fb = torch.zeros((num_pixels, 3), dtype=torch.float32, device=tbl.device)
     for s in range(spp):
         fb = fb + replay_paths(
@@ -216,10 +224,37 @@ def replay_image(scene, camera, config: RenderConfig, res, frame: int = 0,
 
 @dataclasses.dataclass(frozen=True)
 class _Spec:
+    """What one fast renderer runs.  `pixel_base`/`num_local` put recorder
+    and replay into stripe mode (the image is then the flat [num_local, 3]
+    stripe); `reduce(d_table, d_cam)` sums the stripe's cotangents over the
+    ranks (`inverse/shard_grad.py`)."""
+
     config: RenderConfig
     backward: str
     chunk: int
     record_second: bool
+    forward: str = "pallas"
+    pixel_base: Optional[int] = None
+    num_local: Optional[int] = None
+    reduce: Optional[Callable] = None
+
+
+def _record(spec: _Spec, table, cam16, config: RenderConfig, frame: int,
+            sample_base: int = 0, with_residuals: bool = True):
+    """The spec's recorder on its stripe -> (img, res, res2)."""
+    stripe = dict(pixel_base=spec.pixel_base, num_local=spec.num_local)
+    if spec.forward == "sweep":
+        from bevy_raytrace_tpu_torch.kernels.sweep_record import (
+            sweep_record_frame,
+        )
+
+        return sweep_record_frame(table, cam16, config, frame, sample_base,
+                                  spec.record_second, **stripe)
+    from bevy_raytrace_tpu_torch.kernels.record import record_frame
+
+    return record_frame(table, cam16, config, frame, sample_base,
+                        with_residuals,
+                        spec.record_second and with_residuals, **stripe)
 
 
 class _FastRender(torch.autograd.Function):
@@ -230,15 +265,10 @@ class _FastRender(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, cam16, spec: _Spec, frame: int):
-        from bevy_raytrace_tpu_torch.kernels.record import record_frame
-
-        if spec.chunk:
-            # Value only: the backward re-records each sample chunk.
-            img, res, res2 = record_frame(table, cam16, spec.config, frame,
-                                          with_residuals=False)
-        else:
-            img, res, res2 = record_frame(table, cam16, spec.config, frame,
-                                          record_second=spec.record_second)
+        # With a chunk, value only: the backward re-records each sample
+        # chunk.
+        img, res, res2 = _record(spec, table, cam16, spec.config, frame,
+                                 with_residuals=not spec.chunk)
         ctx.spec, ctx.frame = spec, frame
         ctx.residuals = (res, res2)
         ctx.save_for_backward(table, cam16)
@@ -246,7 +276,6 @@ class _FastRender(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from bevy_raytrace_tpu_torch.kernels.record import record_frame
         from bevy_raytrace_tpu_torch.kernels.replay_grad import (
             replay_grad,
             replay_grad_plain,
@@ -255,14 +284,15 @@ class _FastRender(torch.autograd.Function):
         table, cam16 = ctx.saved_tensors
         spec, frame = ctx.spec, ctx.frame
         g = g.contiguous()
+        stripe = dict(pixel_base=spec.pixel_base, num_local=spec.num_local)
         if not spec.chunk:
             res, res2 = ctx.residuals
-            if spec.backward == "kernel":
-                d_tbl, d_cam = replay_grad(table, cam16, spec.config, res, g,
-                                           frame, res2=res2)
-            else:
-                d_tbl, d_cam = replay_grad_plain(table, cam16, spec.config,
-                                                 res, g, frame, res2=res2)
+            replay = (replay_grad if spec.backward == "kernel"
+                      else replay_grad_plain)
+            d_tbl, d_cam = replay(table, cam16, spec.config, res, g, frame,
+                                  res2=res2, **stripe)
+            if spec.reduce is not None:
+                d_tbl, d_cam = spec.reduce(d_tbl, d_cam)
             return d_tbl, d_cam, None, None
         # img = sum_c (chunk/spp) img_c and replay_grad folds 1/chunk: scale
         # g so that each chunk's path counts 1/spp.
@@ -271,22 +301,51 @@ class _FastRender(torch.autograd.Function):
         g_scaled = g * (spec.chunk / spp)
         d_tbl = d_cam = None
         for base in range(0, spp, spec.chunk):
-            _, res, res2 = record_frame(table, cam16, cfg, frame,
-                                        sample_base=base,
-                                        record_second=spec.record_second)
+            _, res, res2 = _record(spec, table, cam16, cfg, frame, base)
             dt, dc = replay_grad(table, cam16, cfg, res, g_scaled, frame,
-                                 sample_base=base, res2=res2)
+                                 sample_base=base, res2=res2, **stripe)
             del res, res2
             d_tbl = dt if d_tbl is None else d_tbl + dt
             d_cam = dc if d_cam is None else d_cam + dc
+        if spec.reduce is not None:
+            d_tbl, d_cam = spec.reduce(d_tbl, d_cam)
         return d_tbl, d_cam, None, None
+
+
+def _check_options(config: RenderConfig, backward: str, grad_spp_chunk: int,
+                   forward: str, clusters):
+    """The option checks `make_fast_renderer` and its sharded form share."""
+    if backward not in ("kernel", "torch"):
+        raise ValueError(f"unknown backward {backward!r}")
+    if forward not in ("pallas", "sweep"):
+        raise ValueError(f"unknown forward {forward!r}")
+    if forward == "sweep" and clusters is not None:
+        raise ValueError(
+            "forward='sweep' records in the unpermuted scene order: cluster "
+            "plans do not apply")
+    if clusters is not None:
+        raise NotImplementedError(
+            "clusters= (K2's cluster-culled broad phase) is not ported yet "
+            "(ROADMAP.md Queue 2)")
+    if grad_spp_chunk:
+        if forward == "sweep":
+            raise ValueError(
+                "forward='sweep' has no chunked form: grad_spp_chunk "
+                "re-records with K2 (forward='pallas') only")
+        if backward != "kernel":
+            raise ValueError("grad_spp_chunk requires backward='kernel'")
+        if config.samples_per_pixel % grad_spp_chunk:
+            raise ValueError(
+                f"samples_per_pixel={config.samples_per_pixel} must be "
+                f"divisible by grad_spp_chunk={grad_spp_chunk}")
 
 
 def make_fast_renderer(config: RenderConfig, backward: str = "kernel",
                        grad_spp_chunk: int = 0, forward: str = "pallas",
                        clusters=None):
     """A differentiable `render(scene, camera, frame=0) -> image [H, W, 3]`
-    whose forward is K2 and whose backward replays the recorded paths.
+    whose forward is K2 (or K4) and whose backward replays the recorded
+    paths.
 
     `backward`: "kernel" (default) runs K3; "torch" replays in PyTorch and
     lets autograd transpose it (the plain version K3 is tested against),
@@ -298,29 +357,15 @@ def make_fast_renderer(config: RenderConfig, backward: str = "kernel",
     K3 on it, summing the cotangents.  The gradient equals the unchunked
     one up to float32 summation order; the cost is one more forward.
 
-    `forward`: "pallas" (K2, the reference's default).  "sweep" (K4) and
-    `clusters` are not ported yet and raise."""
-    if backward not in ("kernel", "torch"):
-        raise ValueError(f"unknown backward {backward!r}")
-    if forward not in ("pallas", "sweep"):
-        raise ValueError(f"unknown forward {forward!r}")
-    if forward == "sweep":
-        raise NotImplementedError(
-            "forward='sweep' (K4, the dense-sweep recorder) is not ported "
-            "yet (ROADMAP.md Queue 2)")
-    if clusters is not None:
-        raise NotImplementedError(
-            "clusters= (K2's cluster-culled broad phase) is not ported yet "
-            "(ROADMAP.md Queue 2)")
-    if grad_spp_chunk:
-        if backward != "kernel":
-            raise ValueError("grad_spp_chunk requires backward='kernel'")
-        if config.samples_per_pixel % grad_spp_chunk:
-            raise ValueError(
-                f"samples_per_pixel={config.samples_per_pixel} must be "
-                f"divisible by grad_spp_chunk={grad_spp_chunk}")
+    `forward`: "pallas" records with K2 (the reference's default: the
+    per-sphere loop on the expanded quadratic); "sweep" records with K4
+    (the dense sweep on the centered quadratic, K1's; residuals in the
+    unpermuted scene order).  The backward is the same either way.
+    "sweep" with `grad_spp_chunk` or with `clusters` raises ValueError;
+    `clusters` alone is not ported yet and raises NotImplementedError."""
+    _check_options(config, backward, grad_spp_chunk, forward, clusters)
     spec = _Spec(config, backward, grad_spp_chunk,
-                 config.edge_softness > 0.0)
+                 config.edge_softness > 0.0, forward)
 
     def render_fast(scene, camera, frame: int = 0):
         return _FastRender.apply(_scene_table(scene).contiguous(),

@@ -25,6 +25,7 @@ import torch
 
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.core.types import Scene
+from bevy_raytrace_tpu_torch.device import resolve
 from bevy_raytrace_tpu_torch.inverse.loss import render_loss
 
 # Leaves of Scene that may be optimized, addressed by short name.
@@ -102,8 +103,10 @@ def save_checkpoint(path: str, step: int, params, opt_state) -> None:
     np.savez(path, **arrays)
 
 
-def load_checkpoint(path: str, device="cpu"):
-    """Read a `save_checkpoint` file -> (step, params, opt_state)."""
+def load_checkpoint(path: str, device=None):
+    """Read a `save_checkpoint` file -> (step, params, opt_state) on
+    `device` (None: the default device)."""
+    device = resolve(device)
     with np.load(path, allow_pickle=False) as z:
         step = int(z["step"])
         names = [k.split(".", 1)[1] for k in z.files if k.startswith("param.")]

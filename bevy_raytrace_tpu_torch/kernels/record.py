@@ -17,9 +17,15 @@ Host side, by the reference's names: `render_pallas(..., with_residuals=True)`
 int16 when the sphere count fits 15 bits (`pallas_render.py:723`), else int32,
 shaped [spp, max_depth, num_pixels].
 
-Not ported (each raises, see ROADMAP.md): the cluster-culled broad phase
-(`clusters=`), stripe mode (`pixel_base`, `num_local`).  The TPU tiling
-options (tile_rows, unroll, skip_dead_tiles) do not exist here.
+Stripe mode (`pixel_base`, `num_local`, as `pallas_render.py:601-656`): the
+launch renders the `num_local` pixels from absolute id `pixel_base`; RNG
+counters and pixel coordinates come from the absolute id, the image is the
+flat [num_local, 3] stripe and the residuals are [spp, max_depth,
+num_local].  Stripes compose bit for bit into the full frame.
+
+Not ported (raises, see ROADMAP.md): the cluster-culled broad phase
+(`clusters=`).  The TPU tiling options (tile_rows, unroll, skip_dead_tiles)
+do not exist here.
 """
 
 from __future__ import annotations
@@ -54,6 +60,24 @@ def residual_dtype(n_spheres: int) -> torch.dtype:
     return torch.int16 if n_spheres <= INT16_SLOTS else torch.int32
 
 
+def _stripe(config: RenderConfig, pixel_base, num_local):
+    """(first absolute pixel id, pixel count) of a launch: the whole frame
+    when `num_local` is None, else the stripe [pixel_base, pixel_base +
+    num_local), which must lie inside the frame."""
+    if num_local is None:
+        if pixel_base is not None:
+            raise ValueError("pixel_base needs num_local (stripe mode takes "
+                             "both)")
+        return 0, config.num_pixels
+    base = 0 if pixel_base is None else int(pixel_base)
+    n = int(num_local)
+    if n < 1 or base < 0 or base + n > config.num_pixels:
+        raise ValueError(
+            f"stripe [{base}, {base + n}) must be non-empty and inside the "
+            f"frame's {config.num_pixels} pixels")
+    return base, n
+
+
 def _record_tables(table):
     """[S, 11] `sphere_table` -> (geom [S', 4], attr [S', 8]) float32.
 
@@ -77,7 +101,8 @@ def _record_tables(table):
 @torch.no_grad()
 def record_frame_plain(table, cam16, config: RenderConfig, frame: int = 0,
                        sample_base: int = 0, with_residuals: bool = True,
-                       record_second: bool = False):
+                       record_second: bool = False, pixel_base=None,
+                       num_local=None):
     """K2 in tensor ops, on any device: the same contract as `record_frame`.
 
     Vectorized over pixels in chunks that bound each [pixels, spheres]
@@ -89,7 +114,7 @@ def record_frame_plain(table, cam16, config: RenderConfig, frame: int = 0,
         raise ValueError("record_second requires with_residuals")
     geom, attr = _record_tables(table.detach())
     cam = cam16.detach()
-    n = config.num_pixels
+    base, n = _stripe(config, pixel_base, num_local)
     dev = table.device
     spp, depth = config.samples_per_pixel, config.max_depth
     rdt = residual_dtype(table.shape[0])
@@ -101,14 +126,16 @@ def record_frame_plain(table, cam16, config: RenderConfig, frame: int = 0,
     budget = _PLAIN_WORKSPACE.get(dev.type, _PLAIN_WORKSPACE["cpu"])
     chunk = max(budget // geom.shape[0] // _LANES, 1) * _LANES
     seed = frame_seed(config, frame)
-    pids = torch.arange(n, dtype=torch.int64, device=dev)
+    pids = torch.arange(base, base + n, dtype=torch.int64, device=dev)
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
         out_res = None if res is None else res[:, :, lo:hi]
         out_res2 = None if res2 is None else res2[:, :, lo:hi]
         fb[lo:hi] = _plain_chunk(geom, attr, cam, pids[lo:hi], seed,
                                  sample_base, config, out_res, out_res2)
-    img = (fb / spp).reshape(config.height, config.width, 3)
+    img = fb / spp
+    if num_local is None:
+        img = img.reshape(config.height, config.width, 3)
     return img, res, res2
 
 
@@ -196,8 +223,8 @@ def _k2_launcher():
     fn = lib.brt_k2_record
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)
-    fn.argtypes = [vp, vp, i32, vp, i32, vp, vp, vp, i32, i32, u32, u32, i32,
-                   i32, f32, f32, i32, i32, vp]
+    fn.argtypes = [vp, vp, i32, vp, i32, i32, vp, vp, vp, i32, i32, u32, u32,
+                   i32, i32, f32, f32, i32, i32, vp]
     fn.restype = i32
     return fn
 
@@ -214,15 +241,19 @@ def _check_frame(table, cam16, config: RenderConfig, sample_base: int):
 
 def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
                  sample_base: int = 0, with_residuals: bool = True,
-                 record_second: bool = False):
-    """K2: render `config`'s frame from the sphere table and packed camera.
+                 record_second: bool = False, pixel_base=None,
+                 num_local=None):
+    """K2: render `config`'s frame, or one stripe of it, from the sphere
+    table and packed camera.
 
     table [S, 11] float32 is `sphere_table(...)` (its values only: no
     gradient flows through here); cam16 [16] float32 is `Camera.pack()`.
-    Samples are [sample_base, sample_base + spp).  Returns (img [H, W, 3],
-    res, res2): res [spp, max_depth, H*W] int16/int32 winner indices when
-    `with_residuals` (else None), res2 the runner-ups when `record_second`
-    (else None).
+    Samples are [sample_base, sample_base + spp).  With `num_local` the
+    pixels are [pixel_base, pixel_base + num_local) and the image is the
+    flat [num_local, 3] stripe; else the whole frame, [H, W, 3].  Returns
+    (img, res, res2): res [spp, max_depth, npix] int16/int32 winner indices
+    when `with_residuals` (else None), res2 the runner-ups when
+    `record_second` (else None).
 
     CUDA tensors launch the kernel (and count one in
     `record_frame.launches`); CPU tensors run `record_frame_plain`; any other
@@ -231,14 +262,15 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
         raise ValueError("record_second requires with_residuals")
     table, cam16 = table.detach(), cam16.detach()
     _check_frame(table, cam16, config, sample_base)
+    base, n = _stripe(config, pixel_base, num_local)
     device = table.device
     if device.type == "cpu":
         return record_frame_plain(table, cam16, config, frame, sample_base,
-                                  with_residuals, record_second)
+                                  with_residuals, record_second, pixel_base,
+                                  num_local)
     if device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA (or its twin on CPU), not {device}")
     geom, attr = _record_tables(table)
-    n = config.num_pixels
     spp, depth = config.samples_per_pixel, config.max_depth
     rdt = residual_dtype(table.shape[0])
     img = torch.empty((n, 3), dtype=torch.float32, device=device)
@@ -250,7 +282,7 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = launch(geom.data_ptr(), attr.data_ptr(), geom.shape[0],
-                     cam16.data_ptr(), n, img.data_ptr(),
+                     cam16.data_ptr(), base, n, img.data_ptr(),
                      0 if res is None else res.data_ptr(),
                      0 if res2 is None else res2.data_ptr(),
                      2 if rdt == torch.int16 else 4,
@@ -261,7 +293,9 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     if err != 0:
         raise RuntimeError(f"K2 launch failed with cudaError_t {err}")
     record_frame.launches += 1
-    return img.reshape(config.height, config.width, 3), res, res2
+    if num_local is None:
+        img = img.reshape(config.height, config.width, 3)
+    return img, res, res2
 
 
 record_frame.launches = 0
@@ -270,13 +304,11 @@ record_frame.launches = 0
 # --- host side ----------------------------------------------------------
 
 
-def _reject_unported(clusters, pixel_base, num_local):
-    for name, value in (("clusters", clusters), ("pixel_base", pixel_base),
-                        ("num_local", num_local)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP.md: the cluster broad "
-                f"phase of K2 and the stripe modes of K2/K3 come later)")
+def _reject_unported(clusters):
+    if clusters is not None:
+        raise NotImplementedError(
+            "clusters= is not ported yet (ROADMAP.md: the cluster broad "
+            "phase of K2 comes later)")
 
 
 def _operands(scene, camera):
@@ -288,23 +320,24 @@ def _operands(scene, camera):
 def render_record(scene, camera, config: RenderConfig, frame: int = 0,
                   sample_base: int = 0, record_second: bool = False,
                   clusters=None, pixel_base=None, num_local=None):
-    """Recording forward render on K2 -> (img [H, W, 3], res, res2 or None).
+    """Recording forward render on K2 -> (img, res, res2 or None).
 
     The port of `render_pallas(..., with_residuals=True, record_second=...)`.
-    res/res2 are [spp, max_depth, H*W] sphere indices (int16 when the
+    img is [H, W, 3], or the flat [num_local, 3] stripe in stripe mode;
+    res/res2 are [spp, max_depth, npix] sphere indices (int16 when the
     scene has at most 32,767 spheres, else int32; -1 = no hit)."""
-    _reject_unported(clusters, pixel_base, num_local)
+    _reject_unported(clusters)
     table, cam16 = _operands(scene, camera)
     return record_frame(table, cam16, config, frame, sample_base, True,
-                        record_second)
+                        record_second, pixel_base, num_local)
 
 
 def render_record_plain(scene, camera, config: RenderConfig, frame: int = 0,
                         sample_base: int = 0, record_second: bool = False,
                         clusters=None, pixel_base=None, num_local=None):
     """`render_record` through K2's plain twin, on any device."""
-    _reject_unported(clusters, pixel_base, num_local)
+    _reject_unported(clusters)
     table, cam16 = _operands(scene, camera)
     return record_frame_plain(table, cam16, config, frame, sample_base, True,
-                              record_second)
+                              record_second, pixel_base, num_local)
 

@@ -97,7 +97,14 @@ def render_lanes_plain(geom, attr, cam, pids, seed: int, sample_base: int,
 
 
 def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
-                 t_min, width, height):
+                 t_min, width, height, res=None, res2=None):
+    """One chunk of lanes -> (radiance sums [n, 3], executed rounds [n]).
+
+    With `res` ([spp, max_depth, n] int, written in place) the sweep also
+    records each round's winner index, -1 for a miss or a dead path, and
+    with `res2` the runner-up (the nearest valid root farther than the
+    winner's): K4's recording (`kernels/sweep_record.py`), which shares
+    this body as its kernel shares K1's."""
     where = torch.where
     gx, gy, gz, gr2 = geom.T.contiguous().unbind(0)
     zero = torch.zeros(pid.shape, dtype=torch.float32, device=pid.device)
@@ -113,6 +120,10 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
 
         for bounce in range(max_depth):
             if bounce and not bool(alive.any()):
+                if res is not None:  # every path is dead: -1 from here on
+                    res[s, bounce:] = -1
+                if res2 is not None:
+                    res2[s, bounce:] = -1
                 break
             rounds = rounds + alive.to(torch.float32)
             # ---- dense sweep: nearest hit, first index wins ties -------
@@ -128,6 +139,13 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
             tn = where(tn > t_min, tn, math.inf)
             best_t, best = torch.min(tn, dim=1)
             hit = best_t < math.inf
+            if res is not None:
+                res[s, bounce] = where(hit & alive, best, -1).to(res.dtype)
+            if res2 is not None:
+                t2, best2 = torch.min(
+                    where(tn > best_t[:, None], tn, math.inf), dim=1)
+                res2[s, bounce] = where(hit & (t2 < math.inf) & alive, best2,
+                                        -1).to(res2.dtype)
 
             # ---- exact t of the winner, hit frame ----------------------
             bcx, bcy, bcz, br2 = geom[best].unbind(1)
@@ -174,9 +192,11 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
 # --- the wrapper ----------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=1)
-def _k1_launcher():
-    lib = build.load("k1_render")
+@functools.lru_cache(maxsize=None)
+def _k1_launcher(defines: tuple = ()):
+    """K1's launcher; `defines` select a measurement probe's build (see
+    csrc/k1_render.cu)."""
+    lib = build.load("k1_render", defines)
     fn = lib.brt_k1_render
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, i32, vp, vp, i32, vp, vp, ctypes.c_uint,

@@ -10,9 +10,13 @@ launches the kernel or raises; on CPU tensors it runs `replay_grad_plain`:
 autograd of the PyTorch replay (`inverse/fast_grad.py::replay_paths`), the
 function whose adjoint the kernel computes by hand.
 
-Not ported (raises, see ROADMAP.md): stripe mode (`pixel_base`,
-`num_local`).  The TPU's bf16 limb split and one-hot MXU contraction do not
-exist here: rows are read and cotangents added by index.
+Stripe mode (`pixel_base`, `num_local`, as the reference's
+`replay_grad.py:405-433`): `g` is the flat [num_local, 3] stripe cotangent
+and the residuals are the stripe's [spp, depth, num_local]; the paths'
+RNG counters and camera rays come from the absolute pixel ids, and the
+returned cotangents are the stripe's partial sums (`inverse/shard_grad.py`
+all-reduces them).  The TPU's bf16 limb split and one-hot MXU contraction do
+not exist here: rows are read and cotangents added by index.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.core.camera import Camera
 from bevy_raytrace_tpu_torch.kernels import build
-from bevy_raytrace_tpu_torch.kernels.record import _check_frame
+from bevy_raytrace_tpu_torch.kernels.record import _check_frame, _stripe
 from bevy_raytrace_tpu_torch.kernels.render_lanes import _check
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
@@ -37,13 +41,11 @@ MAX_DEPTH = 16
 
 def _check_operands(table, cam16, config: RenderConfig, res, g,
                     sample_base: int, res2, pixel_base, num_local):
-    if pixel_base is not None or num_local is not None:
-        raise NotImplementedError(
-            "stripe mode (pixel_base/num_local) of K3 is not ported yet "
-            "(ROADMAP.md)")
+    """Checks K3's operands -> (first absolute pixel id, pixel count)."""
     _check_frame(table, cam16, config, sample_base)
+    base, n = _stripe(config, pixel_base, num_local)
     device = table.device
-    shape = (config.samples_per_pixel, config.max_depth, config.num_pixels)
+    shape = (config.samples_per_pixel, config.max_depth, n)
     for name, r in (("res", res), ("res2", res2)):
         if r is None:
             continue
@@ -56,11 +58,14 @@ def _check_operands(table, cam16, config: RenderConfig, res, g,
         raise ValueError(
             "edge_softness > 0 requires runner-up residuals (res2) — "
             "record the forward with record_second=True")
-    if tuple(g.shape) not in ((config.height, config.width, 3),
-                              (config.num_pixels, 3)):
-        raise ValueError(f"g must be [H, W, 3], got {tuple(g.shape)}")
+    g_shapes = ([(n, 3)] if num_local is not None
+                else [(config.height, config.width, 3), (n, 3)])
+    if tuple(g.shape) not in g_shapes:
+        raise ValueError(f"g must have shape {g_shapes[0]}, got "
+                         f"{tuple(g.shape)}")
     if g.device != device or g.dtype != torch.float32:
         raise ValueError("g must be float32 on the table's device")
+    return base, n
 
 
 def replay_grad_plain(table, cam16, config: RenderConfig, res, g,
@@ -70,19 +75,19 @@ def replay_grad_plain(table, cam16, config: RenderConfig, res, g,
     (each bounce checkpointed when storing the graph would pass 4 GiB)."""
     from bevy_raytrace_tpu_torch.inverse.fast_grad import _replay_sum
 
-    _check_operands(table, cam16, config, res, g, sample_base, res2,
-                    pixel_base, num_local)
+    base, n = _check_operands(table, cam16, config, res, g, sample_base,
+                              res2, pixel_base, num_local)
     with torch.enable_grad():
         tbl = table.detach().requires_grad_(True)
         cam = cam16.detach().requires_grad_(True)
         camera = Camera.from_packed(cam, device=cam.device)
         fb = _replay_sum(camera, config, res, tbl, frame_seed(config, frame),
                          sample_base,
-                         res2 if config.edge_softness > 0.0 else None)
+                         res2 if config.edge_softness > 0.0 else None,
+                         pixel_base=base, num_local=n)
         img = fb / config.samples_per_pixel
         d_tbl, d_cam = torch.autograd.grad(
-            img, (tbl, cam), g.reshape(config.num_pixels, 3),
-            allow_unused=True)
+            img, (tbl, cam), g.reshape(n, 3), allow_unused=True)
     if d_tbl is None:
         d_tbl = torch.zeros_like(table)
     if d_cam is None:
@@ -98,8 +103,8 @@ def _k3_launcher(defines: tuple = ()):
     fn = lib.brt_k3_replay_grad
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)
-    fn.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, i32, i32, u32, u32, i32,
-                   f32, f32, f32, i32, i32, vp]
+    fn.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, i32, i32, i32, u32, u32,
+                   i32, f32, f32, f32, i32, i32, vp]
     fn.restype = i32
     return fn
 
@@ -112,27 +117,31 @@ def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
     table [S, 11] float32 is the `sphere_table` the residual indices refer
     to; cam16 [16] float32 is `Camera.pack()`; res (and res2 when
     `config.edge_softness > 0`) [spp, max_depth, H*W] int16/int32 come from
-    K2 with the same config, frame and sample_base; g [H, W, 3] float32 is
-    the cotangent of the IMAGE, the mean over samples (1/spp is folded in).
+    K2 or K4 with the same config, frame and sample_base; g [H, W, 3]
+    float32 is the cotangent of the IMAGE, the mean over samples (1/spp is
+    folded in).  In stripe mode (`num_local`, with `pixel_base` the
+    stripe's first absolute pixel id, both as given to the recorder) res and
+    res2 are [spp, max_depth, num_local] and g is the flat [num_local, 3]
+    stripe cotangent.
 
     Returns (d_table [S, 11], d_cam [16]) float32, d_cam in `pack()`'s
-    layout.  CUDA tensors launch the kernel (and count one in
+    layout; in stripe mode the stripe's partial sums.  CUDA tensors launch the kernel (and count one in
     `replay_grad.launches`); CPU tensors run `replay_grad_plain`; any other
     device raises.  Paths deeper than MAX_DEPTH bounces raise on every
     device."""
-    _check_operands(table, cam16, config, res, g, sample_base, res2,
-                    pixel_base, num_local)
+    base, n = _check_operands(table, cam16, config, res, g, sample_base,
+                              res2, pixel_base, num_local)
     if config.max_depth > MAX_DEPTH:
         raise ValueError(f"max_depth={config.max_depth} exceeds K3's "
                          f"MAX_DEPTH={MAX_DEPTH}")
     device = table.device
     if device.type == "cpu":
         return replay_grad_plain(table, cam16, config, res, g, frame,
-                                 sample_base, res2)
+                                 sample_base, res2, pixel_base, num_local)
     if device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA (or its twin on CPU), not {device}")
     out = _launch(_k3_launcher(), table, cam16, config, res, g, frame,
-                  sample_base, res2)
+                  sample_base, res2, base, n)
     replay_grad.launches += 1
     return out
 
@@ -141,8 +150,11 @@ replay_grad.launches = 0
 
 
 def _launch(launch, table, cam16, config: RenderConfig, res, g, frame: int,
-            sample_base: int, res2):
-    """Runs `launch` (a `_k3_launcher`) on checked CUDA operands."""
+            sample_base: int, res2, pixel_base: int = 0, num_local=None):
+    """Runs `launch` (a `_k3_launcher`) on checked CUDA operands; the
+    pixels are [pixel_base, pixel_base + num_local), the whole frame when
+    `num_local` is None."""
+    n = config.num_pixels if num_local is None else num_local
     device = table.device
     table, cam16 = table.detach(), cam16.detach()
     g = g.detach().contiguous()
@@ -155,7 +167,7 @@ def _launch(launch, table, cam16, config: RenderConfig, res, g, frame: int,
         err = launch(table.data_ptr(), cam16.data_ptr(), res.data_ptr(),
                      res2.data_ptr() if edge else 0,
                      2 if res.dtype == torch.int16 else 4, g.data_ptr(),
-                     d_tbl.data_ptr(), d_cam.data_ptr(), config.num_pixels,
+                     d_tbl.data_ptr(), d_cam.data_ptr(), pixel_base, n,
                      config.samples_per_pixel, frame_seed(config, frame),
                      sample_base, config.max_depth, config.t_min,
                      config.edge_softness,

@@ -8,9 +8,13 @@ what bounds K3.
    (`optimize`, 1200x800x64, depth 8, config1 perturbed, edge_softness
    0.01: two K2 renders and two K3 backwards) and the flagship gradient
    (1200x800x256, depth 8, rtiow_final, d mean(img^2) / d centers),
-   unchunked and with grad_spp_chunk=64.  Per shape: wall ms (host clock to
-   synchronize), the device time of each kernel, the device's idle share
-   (1 - the kernels' sum / wall) and the peak device memory.
+   unchunked, with grad_spp_chunk=64, and recorded by K4 (forward="sweep");
+   then the same gradient through `make_fast_renderer_sharded` in a
+   torch.distributed group of world size 1 on nccl, recorded by K2 and by
+   K4 (stripe-mode kernels, one all-gather, one all-reduce).  Per shape:
+   wall ms (host clock to synchronize), the device time of each kernel, the
+   device's idle share (1 - the kernels' sum / wall) and the peak device
+   memory.
 2. K3 probes: the kernel against builds of the same source with the d_table
    atomics in float32, with no d_table atomics, and with __launch_bounds__
    asking for 8 blocks per SM (csrc/k3_replay_grad.cu, "Measurement
@@ -118,11 +122,11 @@ def _profile(name, step, out_dir):
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "top": [[k, ms, n] for ms, k, n in rows[:6]]}
+           "top": [[k, ms, n] for ms, k, n in rows[:8]]}
     log(f"[profile] {name}: wall {wall_ms:.1f} ms, device busy {busy:.1f} "
         f"ms, idle share {out['idle_share']:.2%}, peak "
         f"{out['peak_gib']:.2f} GiB")
-    for ms, k, n in rows[:6]:
+    for ms, k, n in rows[:8]:
         log(f"[profile]   {ms:10.2f} ms  x{n:<4d} {k[:100]}")
     if out_dir:
         with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
@@ -134,8 +138,17 @@ def profile_steps(dev, out_dir):
     """Part 1 -> {shape: profile summary}."""
     import torch
 
+    import socket
+
+    import torch.distributed as dist
+
     from bevy_raytrace_tpu_torch import RenderConfig, scenes
-    from bevy_raytrace_tpu_torch.inverse import make_fast_renderer, optimize
+    from bevy_raytrace_tpu_torch.inverse import (
+        make_fast_renderer,
+        make_fast_renderer_sharded,
+        optimize,
+    )
+    from bevy_raytrace_tpu_torch.shard import initialize_multihost, make_mesh
 
     scene_bad, _, problem = cli_inverse_problem(dev)
     res = {"inverse_step": _profile(
@@ -146,17 +159,34 @@ def profile_steps(dev, out_dir):
                        max_depth=8)
     rt = scenes.rtiow_final_scene(0, device=dev)[0]
     cam = scenes.rtiow_final_camera(big.aspect, device=dev)
-    for chunk in (0, 64):
-        render_fn = make_fast_renderer(big, grad_spp_chunk=chunk)
 
+    def profile_gradient(name, render_fn):
         def step():
             c = rt.centers.clone().requires_grad_(True)
             loss = torch.mean(
                 render_fn(dataclasses.replace(rt, centers=c), cam, 1) ** 2)
             return torch.autograd.grad(loss, c)[0]
 
-        name = f"flagship_grad_chunk{chunk}"
         res[name] = _profile(name, step, out_dir)
+
+    for chunk in (0, 64):
+        profile_gradient(f"flagship_grad_chunk{chunk}",
+                         make_fast_renderer(big, grad_spp_chunk=chunk))
+    profile_gradient("flagship_grad_sweep",
+                     make_fast_renderer(big, forward="sweep"))
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0)
+    mesh = make_mesh()
+    for forward in ("pallas", "sweep"):
+        sharded = make_fast_renderer_sharded(big, mesh, forward=forward)
+        profile_gradient(
+            f"sharded_flagship_grad_{forward}",
+            lambda sc, c, frame, sharded=sharded: sharded(sc, c, frame,
+                                                          gather=True))
+    dist.destroy_process_group()
     return res
 
 

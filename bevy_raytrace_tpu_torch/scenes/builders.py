@@ -19,7 +19,7 @@ def _build(spheres, registry: MaterialRegistry, device) -> Scene:
     centers = np.array([s[0] for s in spheres], np.float32)
     radii = np.array([s[1] for s in spheres], np.float32)
     mats = np.array([s[2] for s in spheres], np.int32)
-    m = registry.to_materials()
+    m = registry.to_materials(device)
     return make_scene(centers, radii, mats, m.albedo, m.kind, m.fuzz, m.ior,
                       device=device)
 
@@ -27,7 +27,7 @@ def _build(spheres, registry: MaterialRegistry, device) -> Scene:
 # --- BASELINE config 1: single Lambertian sphere + ground ------------------
 
 
-def baseline_config1_scene(device="cpu"):
+def baseline_config1_scene(device=None):
     reg = MaterialRegistry()
     ground = reg.lambertian("ground", (0.5, 0.5, 0.5))
     ball = reg.lambertian("ball", (0.7, 0.3, 0.3))
@@ -38,7 +38,7 @@ def baseline_config1_scene(device="cpu"):
     return _build(spheres, reg, device), reg
 
 
-def baseline_config1_camera(aspect, device="cpu"):
+def baseline_config1_camera(aspect, device=None):
     return Camera.look_at(lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0),
                           vfov_deg=90.0, aspect=aspect, aperture=0.0,
                           focus_dist=1.0, device=device)
@@ -47,7 +47,7 @@ def baseline_config1_camera(aspect, device="cpu"):
 # --- BASELINE config 2: lambertian + metal + dielectric --------------------
 
 
-def baseline_config2_scene(device="cpu"):
+def baseline_config2_scene(device=None):
     reg = MaterialRegistry()
     ground = reg.lambertian("ground", (0.8, 0.8, 0.0))
     center = reg.lambertian("center", (0.1, 0.2, 0.5))
@@ -64,7 +64,7 @@ def baseline_config2_scene(device="cpu"):
     return _build(spheres, reg, device), reg
 
 
-def baseline_config2_camera(aspect, device="cpu"):
+def baseline_config2_camera(aspect, device=None):
     return Camera.look_at(lookfrom=(-2.0, 2.0, 1.0), lookat=(0.0, 0.0, -1.0),
                           vfov_deg=20.0, aspect=aspect, aperture=0.0,
                           device=device)
@@ -73,7 +73,7 @@ def baseline_config2_camera(aspect, device="cpu"):
 # --- BASELINE config 3: RTiOW final (book-cover) scene ---------------------
 
 
-def rtiow_final_scene(seed: int = 0, grid: int = 11, device="cpu"):
+def rtiow_final_scene(seed: int = 0, grid: int = 11, device=None):
     """~480 spheres: ground + jittered grid + three heroes.
 
     Grid material mix per RTiOW: 80% diffuse (albedo = rand*rand),
@@ -113,7 +113,7 @@ def rtiow_final_scene(seed: int = 0, grid: int = 11, device="cpu"):
     return _build(spheres, reg, device), reg
 
 
-def rtiow_final_camera(aspect, device="cpu"):
+def rtiow_final_camera(aspect, device=None):
     """RTiOW final viewpoint: (13,2,3) looking at the origin."""
     return Camera.look_at(lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
                           vfov_deg=20.0, aspect=aspect, aperture=0.1,
@@ -123,7 +123,7 @@ def rtiow_final_camera(aspect, device="cpu"):
 # --- The reference's exact scene variant -----------------------------------
 
 
-def reference_scene(seed: int = 0, device="cpu"):
+def reference_scene(seed: int = 0, device=None):
     """The scene the reference renderer actually builds (14x14 grid, no
     dielectrics), with its startup material palette and registry insertion
     order (ground, center, left, right, then grid materials)."""

@@ -19,6 +19,7 @@ from bevy_raytrace_tpu_torch.core.types import (
     METALLIC,
     Materials,
 )
+from bevy_raytrace_tpu_torch.device import resolve
 
 _KINDS = {"lambertian": LAMBERTIAN, "metallic": METALLIC, "dielectric": DIELECTRIC}
 
@@ -70,8 +71,9 @@ class MaterialRegistry:
     def names(self):
         return list(self._materials)
 
-    def to_materials(self, device="cpu") -> Materials:
-        """Lower to the SoA table on `device`."""
+    def to_materials(self, device=None) -> Materials:
+        """Lower to the SoA table on `device` (None: the default device)."""
+        device = resolve(device)
         specs = list(self._materials.values())
         if not specs:
             raise ValueError("empty material registry")

@@ -1,9 +1,10 @@
 """Renderer session object: the frame-loop layer.
 
-Mirror of `bevy_raytrace_tpu/wavefront/engine.py` for the port's two
+Mirror of `bevy_raytrace_tpu/wavefront/engine.py` for the port's
 backends.  `Renderer` auto-advances the frame counter (RNG decorrelation),
 accepts a new scene/camera every frame, and for the "cuda" backend keeps the
-cost-balanced lane permutation between frames.
+cost-balanced lane permutation between frames.  The sharded backends render
+this process's pixel stripe and gather the image over the mesh.
 """
 
 from __future__ import annotations
@@ -13,9 +14,8 @@ import threading
 import time
 from typing import Optional
 
-import torch
-
 from bevy_raytrace_tpu_torch.config import RenderConfig
+from bevy_raytrace_tpu_torch.device import resolve
 from bevy_raytrace_tpu_torch.utils.metrics import FrameTimer, synchronize
 
 # Samples of the probe pass that measures the cost map (they count).
@@ -27,21 +27,29 @@ class Renderer:
 
     Args:
       config: render configuration.
-      backend: "torch" (the wavefront, any device) or "cuda" (the K1 kernel
-        with cost-balanced scheduling; needs a CUDA device and raises on any
-        other).
-      device: where scenes, cameras and images live.
+      backend: "cuda" (the default: the K1 kernel with cost-balanced
+        scheduling; needs a CUDA device and raises on any other), "torch"
+        (the wavefront, any device), "sharded" (the wavefront on this
+        rank's pixel stripe, `shard.render_sharded`) or "cuda-sharded" (K1
+        on this rank's stripe, `shard.render_mxu_sharded`: the reference's
+        "mxu-sharded").  The
+        sharded backends return the gathered [H, W, 3] image on every rank.
+      device: where scenes, cameras and images live; None is the default
+        device (`device.default_device()`: the CUDA device, never a silent
+        CPU).
+      mesh: sharded backends only: the `shard.Mesh`; None is
+        `shard.make_mesh()` over the initialized process group.
       replan_interval: "cuda" backend only.  0 keeps the cost-map
         permutation until `replan()`; N > 0 re-probes every N frames, so the
         schedule tracks camera and scene motion.  The image never depends on
         the permutation, only the speed does.
     """
 
-    def __init__(self, config: RenderConfig, backend: str = "torch",
-                 device="cpu", replan_interval: int = 0):
+    def __init__(self, config: RenderConfig, backend: str = "cuda",
+                 device=None, replan_interval: int = 0, mesh=None):
         self.config = config
         self.backend = backend
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.frame = 0
         self.ready = False
         self.replan_interval = replan_interval
@@ -60,8 +68,29 @@ class Renderer:
             self._perm_pixels = None  # resolution the cached perm is for
             self._frames_on_perm = 0
             self._step = self._cuda_step
+        elif backend in ("sharded", "cuda-sharded"):
+            from bevy_raytrace_tpu_torch.shard import make_mesh
+            from bevy_raytrace_tpu_torch.shard.render_sharded import (
+                local_pixels,
+            )
+
+            self.mesh = make_mesh(device=self.device) if mesh is None else mesh
+            local_pixels(config, self.mesh)  # raises on an indivisible frame
+            self._step = self._sharded_step
         else:
             raise ValueError(f"unknown backend {backend!r}")
+
+    def _sharded_step(self, scene, camera, config, frame):
+        from bevy_raytrace_tpu_torch.shard import (
+            render_mxu_sharded,
+            render_sharded,
+        )
+
+        if self.backend == "sharded":
+            return render_sharded(scene, camera, config, self.mesh, frame,
+                                  gather=True)
+        return render_mxu_sharded(scene, camera, config, self.mesh, frame,
+                                  gather=True)
 
     def _cuda_step(self, scene, camera, config, frame):
         from bevy_raytrace_tpu_torch.kernels.render_lanes import (

@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's main paths from a checkout of this repository — the
-forward render of a frame through the K1 CUDA kernel, and inverse rendering
-through the K2 (recording forward) and K3 (replay gradient) CUDA kernels —
-and fails loudly — a traceback and a nonzero exit — if any phase fails:
+forward render of a frame through the K1 CUDA kernel, inverse rendering
+through the K2 (recording forward) and K3 (replay gradient) CUDA kernels,
+and the sharded gradient path (one process per device on torch.distributed)
+through K2/K4 (the dense-sweep recorder) and K3 in stripe mode — and fails
+loudly — a traceback and a nonzero exit — if any phase fails:
 
   1. environment: torch/CUDA versions, the card (nvidia-smi), nvcc;
   2. build: K1 from bevy_raytrace_tpu_torch/csrc with nvcc, timed;
@@ -20,8 +22,9 @@ and fails loudly — a traceback and a nonzero exit — if any phase fails:
   5. the flagship (1200x800, 256 spp, depth 8, rtiow_final) through
      render_mxu_balanced, timed;
   6. K1's launch count over phases 4-5 must be > 0;
-  7. build: K2 (k2_record) and K3 (k3_replay_grad), one nvcc each, started
-     together, timed, with ptxas registers and spills;
+  7. build: K2 (k2_record), K3 (k3_replay_grad) and K4 (k4_sweep_record),
+     one nvcc each, started together, timed, with ptxas registers and spills
+     of every instantiation;
   8. K2 against its plain twin at the gradient bench's shape (400x300,
      16 spp, depth 8, rtiow_final, edge_softness 0.01): image under
      parity.COMPILED, at most 2% of residual entries differing, and the
@@ -42,12 +45,43 @@ and fails loudly — a traceback and a nonzero exit — if any phase fails:
  11. the flagship gradient (1200x800, 256 spp, depth 8, rtiow_final, d
      mean(img^2) / d centers) unchunked and with grad_spp_chunk=64; finite
      and agreeing to rtol 2e-3;
- 12. K2's and K3's launch counts over phases 10-11 must be > 0.
+ 12. K2's and K3's launch counts over phases 10-11 must be > 0;
+ 13. K4 against its plain twin at the gradient bench's shape (edge_softness
+     0.01: winners + runner-up; 0: winners only) and on the 2-sample
+     1200x800 slice through sample_base: image under parity.COMPILED, at
+     most 2% of residual entries differing, the torch replay of its
+     residuals reconstructing its image; K3 on K4's residuals against K3's
+     twin (rtol 2e-3); K4's time beside K2's and K1's at the same shape;
+ 14. K2, K4 and K3 in stripe mode against their full launches: 4 stripes of
+     the gradient bench's frame, images and residuals bit-identical,
+     cotangents summing to the full launch's (rtol 2e-3);
+ 15. the sharded gradient path at full width: a torch.distributed group of
+     world size 1 on the nccl backend, then make_fast_renderer_sharded on
+     the flagship gradient with forward="pallas" (K2) and forward="sweep"
+     (K4), each against the unsharded gradient through the same recorder
+     (rtol 2e-3; K2's is phase 11's, K4's is taken here and held against
+     K2's in bulk: the two record different near-tangent paths), timed,
+     with the all-reduce's byte count; render_mxu_sharded(balance=True) on
+     the flagship frame bit-identical to render_mxu;
+     Renderer(backend="cuda-sharded") on the reference frame; the group is
+     destroyed;
+ 16. K4's, K2's, K3's and K1's launch counts over phase 15 must be > 0.
+
+Every kernel entry carries bound_ms, the least time the card could take for
+the entry's shape: the larger of the bytes the function must move (each
+input read once, each output written once) over 3.35 TB/s and its float32
+operations over 67 TFLOP/s (the H100 SXM data sheet).  Operations are
+counted from the CUDA sources per ray-sphere test, per executed round and
+per path (the constants below), times what THIS run's data needs: executed
+rounds from K1's `len` output at the same shape, hit bounces from the
+recorded residuals.  No single PyTorch call computes what any of these
+kernels computes, so library_ms is null throughout.
 
 Kernel times are CUDA-event times; step times are host-clock times to
-torch.cuda.synchronize().  Prints a {"kernels": [...]} line, the
-card's name and power limit, and last {"ok": true, "device": {...}}.
-Exits nonzero without a result when no CUDA device is present.
+torch.cuda.synchronize().  Entry points are called without a device where
+the package's default (the CUDA device) serves.  Prints a {"kernels": [...]}
+line, the card's name and power limit, and last {"ok": true, "device":
+{...}}.  Exits nonzero without a result when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -84,9 +118,91 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps, out
 
 
+# The card's published peaks (H100 SXM data sheet): float32 outside the
+# tensor cores, and device memory.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Float32 operations per ray-sphere test, counted from the sources.  K1/K4
+# (k1_render.cu:92-96, k4_sweep_record.cu's sweep): oc 3, hb 5, cq 6,
+# disc 2; the root (rsqrt, two candidates) runs only where disc > 0 and is
+# not counted.  K2 (k2_record.cu:94-102) on the expanded quadratic: c.d 5,
+# o.c 5, half_b 1, cq 3, disc 2, sqrt 1, both roots 4, for every sphere.
+SWEEP_FLOPS = {"k1": 16, "k4": 16, "k2": 21}
+# Per executed round (hit frame, scatter, sky; ~40 + ~70 + ~10) and per path
+# (the thin-lens camera ray), from common.cuh.
+ROUND_FLOPS = 120
+CAMERA_FLOPS = 70
+# K3 (k3_replay_grad.cu): per hit bounce, hit_forward twice (forward sweep
+# and the reverse sweep's recompute, ~90 each), hit_adjoint (~110) and up to
+# 9 row adds; per path, the camera ray and its adjoint (~150) and the sky's.
+K3_HIT_FLOPS = 300
+K3_PATH_FLOPS = 160
+
+
+def bound(flops, nbytes):
+    """{"bound_ms", "bound_by"} of work that needs `flops` float32
+    operations and moves `nbytes` bytes."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def forward_bound(kind, n_spheres, n_pix, spp, depth, rounds, res_streams=0):
+    """Bound of a forward kernel (K1, K2 or K4) that executed `rounds`
+    (path, bounce) rounds over `n_pix` pixels: the sweep over every sphere
+    per round plus shading, against the tables in, the image (and K1's
+    pids in and len out) and `res_streams` int16 residual streams out."""
+    flops = (rounds * (n_spheres * SWEEP_FLOPS[kind] + ROUND_FLOPS)
+             + n_pix * spp * CAMERA_FLOPS)
+    nbytes = (n_spheres * 48 + 64 + n_pix * 12
+              + (n_pix * 8 if kind == "k1" else 0)
+              + res_streams * 2 * spp * depth * n_pix)
+    return bound(flops, nbytes)
+
+
+def k3_bound(n_spheres, n_pix, spp, depth, hits, res_streams):
+    """Bound of K3 on residuals with `hits` recorded hit bounces: reads the
+    residual streams, g and the table; writes float64 d_table and d_cam."""
+    flops = hits * K3_HIT_FLOPS + n_pix * spp * K3_PATH_FLOPS
+    nbytes = (res_streams * 2 * spp * depth * n_pix + n_pix * 12
+              + n_spheres * 44 + 64 + n_spheres * 88 + 128)
+    return bound(flops, nbytes)
+
+
+def k1_rounds(scene, cam, cfg, frame=0, sample_base=0):
+    """Executed (path, bounce) rounds of `cfg`'s frame: the sum of K1's
+    `len` output over the frame's pixels."""
+    import torch
+
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+    from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
+
+    geom, attr = k1._scene_tables(scene)
+    pids = torch.arange(k1.lane_pad(cfg.num_pixels), dtype=torch.int32,
+                        device=scene.device)
+    _, ln = k1.render_lanes(geom, attr, cam.pack().contiguous(), pids,
+                            frame_seed(cfg, frame), sample_base,
+                            cfg.samples_per_pixel, cfg.max_depth, cfg.t_min,
+                            cfg.width, cfg.height)
+    return float(ln[:cfg.num_pixels].sum())
+
+
+def kernel_entry(name, source, replaces, launches, ks):
+    """A kernel's line of the {"kernels": [...]} object from its checks
+    `ks`; the first check gives the headline ms, plain_ms and bound."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in ks),
+            "ms": ks[0]["ms"], "plain_ms": ks[0]["plain_ms"],
+            "bound_ms": ks[0]["bound_ms"], "bound_by": ks[0]["bound_by"],
+            "library_ms": None, "checks": ks}
+
+
 def gradient_phases(dev, smi):
     """Phases 7-12: K2 and K3, and the inverse-rendering path through them.
-    Returns (the kernels' JSON entries, extra stats)."""
+    Returns (K2's and K3's launch counts over the path, extra stats, and
+    what the sharded phases reuse, the kernels' checks among it)."""
     import dataclasses
     import shutil
     import tempfile
@@ -108,7 +224,7 @@ def gradient_phases(dev, smi):
     from bevy_raytrace_tpu_torch.profile_grad import cli_inverse_problem
 
     # ---- 7. build K2 and K3 ----------------------------------------------
-    names = ["k2_record", "k3_replay_grad"]
+    names = ["k2_record", "k3_replay_grad", "k4_sweep_record"]
     t0 = time.perf_counter()
     build.load_all(names)
     build_s = time.perf_counter() - t0
@@ -118,15 +234,16 @@ def gradient_phases(dev, smi):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    log(f"[build] k2 + k3 in {build_s:.2f} s (in parallel)")
+    log(f"[build] k2 + k3 + k4 in {build_s:.2f} s (in parallel)")
 
     # ---- 8-9. K2 and K3 against their twins --------------------------------
     checks = {"k2": [], "k3": []}
 
-    def k2_check(label, table, cam16, cfg, sample_base=0, with_residuals=True,
-                 record_second=False):
+    def k2_check(label, table, cam16, cfg, rounds, sample_base=0,
+                 with_residuals=True, record_second=False):
         """K2 vs its twin on one input: image under COMPILED, at most 2% of
-        residual entries differing.  Returns the kernel's outputs."""
+        residual entries differing.  `rounds`: the executed rounds of this
+        input, for the bound.  Returns the kernel's outputs."""
         kw = dict(sample_base=sample_base, with_residuals=with_residuals,
                   record_second=record_second)
         ms, (img, res, res2) = cuda_ms(
@@ -145,14 +262,17 @@ def gradient_phases(dev, smi):
               f"K2 {label}: residuals differ from the twin's on {off}")
         check(res is None or res.dtype == torch.int16,
               "residuals are not int16")
-        checks["k2"].append({"shape": label, "max_abs_err":
-                             img_vs["max_abs_err"], "residuals_off": off,
-                             "ms": ms, "plain_ms": plain_ms})
+        checks["k2"].append({
+            "shape": label, "max_abs_err": img_vs["max_abs_err"],
+            "residuals_off": off, "ms": ms, "plain_ms": plain_ms,
+            **forward_bound("k2", table.shape[0], cfg.num_pixels,
+                            cfg.samples_per_pixel, cfg.max_depth, rounds,
+                            int(with_residuals) + int(record_second))})
         return img, res, res2
 
     def k3_check(label, table, cam16, cfg, res, res2, sample_base=0):
-        """K3 vs its twin on K2's residuals with a seeded cotangent: d_table
-        and d_cam to rtol 2e-3 of the larger max-abs."""
+        """K3 vs its twin on recorded residuals with a seeded cotangent:
+        d_table and d_cam to rtol 2e-3 of the larger max-abs."""
         g = torch.from_numpy(np.random.default_rng(0).standard_normal(
             (cfg.height, cfg.width, 3)).astype(np.float32)).to(dev)
         ms, (d_tbl, d_cam) = cuda_ms(
@@ -172,7 +292,10 @@ def gradient_phases(dev, smi):
         checks["k3"].append({
             "shape": label, "rel_err": [tbl_vs["rel_err"], cam_vs["rel_err"]],
             "max_abs_err": max(tbl_vs["max_abs_err"], cam_vs["max_abs_err"]),
-            "ms": ms, "plain_ms": plain_ms})
+            "ms": ms, "plain_ms": plain_ms,
+            **k3_bound(table.shape[0], cfg.num_pixels, cfg.samples_per_pixel,
+                       cfg.max_depth, int((res >= 0).sum()),
+                       1 if res2 is None else 2)})
 
     # The gradient bench's shape (400x300, 16 spp, depth 8, rtiow_final),
     # with edge_softness 0.01 (the inverse path's instantiations: runner-up
@@ -180,12 +303,15 @@ def gradient_phases(dev, smi):
     cfg = RenderConfig(width=400, height=300, samples_per_pixel=16,
                        max_depth=8, edge_softness=0.01)
     cfg0 = cfg.replace(edge_softness=0.0)
-    scene = scenes.rtiow_final_scene(0, device=dev)[0]
-    cam = scenes.rtiow_final_camera(cfg.aspect, device=dev)
+    scene = scenes.rtiow_final_scene(0)[0]  # the default device: the card
+    cam = scenes.rtiow_final_camera(cfg.aspect)
+    check(scene.device.type == "cuda" and cam.origin.device.type == "cuda",
+          "the scene constructors' default device is not the card")
     table, cam16 = k2._operands(scene, cam)
     bench = f"rtiow {cfg.width}x{cfg.height}x{cfg.samples_per_pixel} depth 8"
+    bench_rounds = k1_rounds(scene, cam, cfg, 1)
     img, res, res2 = k2_check(f"{bench} record_second", table, cam16, cfg,
-                              record_second=True)
+                              bench_rounds, record_second=True)
     with torch.no_grad():
         rep = replay_image(scene, cam, cfg, res, 1, res2=res2)
     rep_vs = compare(rep.cpu().numpy(), img.cpu().numpy(), COMPILED)
@@ -193,8 +319,9 @@ def gradient_phases(dev, smi):
     check(rep_vs["ok"], f"replay does not reconstruct the K2 image {rep_vs}")
     k3_check(f"{bench} edge 0.01", table, cam16, cfg, res, res2)
     del res, res2
-    _, res, _ = k2_check(f"{bench} record", table, cam16, cfg0)
-    k2_check(f"{bench} value only", table, cam16, cfg0, with_residuals=False)
+    _, res, _ = k2_check(f"{bench} record", table, cam16, cfg0, bench_rounds)
+    k2_check(f"{bench} value only", table, cam16, cfg0, bench_rounds,
+             with_residuals=False)
     k3_check(f"{bench} edge 0", table, cam16, cfg0, res, None)
     del res
 
@@ -202,11 +329,13 @@ def gradient_phases(dev, smi):
     # through sample_base, as grad_spp_chunk's re-recording runs them).
     sl = RenderConfig(width=1200, height=800, samples_per_pixel=2,
                       max_depth=8)
-    sl_table, sl_cam16 = k2._operands(
-        scene, scenes.rtiow_final_camera(sl.aspect, device=dev))
+    sl_cam = scenes.rtiow_final_camera(sl.aspect)
+    sl_table, sl_cam16 = k2._operands(scene, sl_cam)
     label = "rtiow 1200x800 samples 128-129 depth 8"
-    _, res, _ = k2_check(f"{label} record", sl_table, sl_cam16, sl, 128)
-    k2_check(f"{label} value only", sl_table, sl_cam16, sl, 128,
+    sl_rounds = k1_rounds(scene, sl_cam, sl, 1, 128)
+    _, res, _ = k2_check(f"{label} record", sl_table, sl_cam16, sl, sl_rounds,
+                         128)
+    k2_check(f"{label} value only", sl_table, sl_cam16, sl, sl_rounds, 128,
              with_residuals=False)
     k3_check(f"{label} edge 0", sl_table, sl_cam16, sl, res, None, 128)
     del res
@@ -250,7 +379,7 @@ def gradient_phases(dev, smi):
     # ---- 11. the flagship gradient ----------------------------------------
     big = RenderConfig(width=1200, height=800, samples_per_pixel=256,
                        max_depth=8)
-    cam_big = scenes.rtiow_final_camera(big.aspect, device=dev)
+    cam_big = scenes.rtiow_final_camera(big.aspect)
 
     def flagship_grad(render_fn):
         c = scene.centers.clone().requires_grad_(True)
@@ -286,27 +415,276 @@ def gradient_phases(dev, smi):
     check(k2_launches > 0 and k3_launches > 0,
           "K2 or K3 was not launched by the inverse-rendering path")
 
-    def entry(name, source, replaces, launches, ks):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(c["max_abs_err"] for c in ks),
-                "ms": ks[0]["ms"], "plain_ms": ks[0]["plain_ms"],
-                "checks": ks}
-
-    entries = [
-        entry("k2_record", "bevy_raytrace_tpu_torch/csrc/k2_record.cu",
-              "bevy_raytrace_tpu/kernels/pallas_render.py:123", k2_launches,
-              checks["k2"]),
-        entry("k3_replay_grad",
-              "bevy_raytrace_tpu_torch/csrc/k3_replay_grad.cu",
-              "bevy_raytrace_tpu/kernels/replay_grad.py:74", k3_launches,
-              checks["k3"]),
-    ]
+    launches = {"k2": k2_launches, "k3": k3_launches}
     stats = {"grad_build_s": build_s, "inverse_losses": losses,
              "inverse_s_per_step": step_s, "inverse_paths_per_s": inv_pps,
              "flagship_grad_s": {k: v[1] for k, v in flag.items()},
              "flagship_grad_paths_per_s": {k: v[2] for k, v in flag.items()}}
-    return entries, stats
+    shared = {"scene": scene, "cam": cam, "cfg": cfg, "cfg0": cfg0,
+              "table": table, "cam16": cam16, "bench": bench,
+              "bench_rounds": bench_rounds, "sl": sl, "sl_table": sl_table,
+              "sl_cam16": sl_cam16, "sl_rounds": sl_rounds, "big": big,
+              "cam_big": cam_big, "flagship_grad": flagship_grad,
+              "g_full": g_full, "k3_check": k3_check, "checks": checks}
+    return launches, stats, shared
+
+
+def sharded_phases(dev, smi, shared, ref):
+    """Phases 13-16: K4, the stripe modes, and the sharded gradient path.
+    `shared` comes from `gradient_phases`, `ref` holds the reference frame's
+    scene, camera and config.  Returns (launch counts over the sharded path,
+    extra stats); K4's checks join `shared["checks"]`."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bevy_raytrace_tpu_torch.inverse import (
+        make_fast_renderer,
+        make_fast_renderer_sharded,
+        replay_image,
+    )
+    from bevy_raytrace_tpu_torch.kernels import record as k2
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
+    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
+    from bevy_raytrace_tpu_torch.parity import COMPILED, compare, grad_close
+    from bevy_raytrace_tpu_torch.shard import (
+        initialize_multihost,
+        make_mesh,
+        render_mxu_sharded,
+    )
+    from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
+    from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
+
+    scene, cam = shared["scene"], shared["cam"]
+    table, cam16 = shared["table"], shared["cam16"]
+    cfg, cfg0, bench = shared["cfg"], shared["cfg0"], shared["bench"]
+    checks = shared["checks"]
+    checks["k4"] = []
+
+    # ---- 13. K4 against its twin ------------------------------------------
+    def k4_check(label, table, cam16, cfg, rounds, sample_base=0,
+                 record_second=False):
+        """K4 vs its twin on one input: image under COMPILED, at most 2% of
+        residual entries differing.  Returns the kernel's outputs."""
+        kw = dict(sample_base=sample_base, record_second=record_second)
+        ms, (img, res, res2) = cuda_ms(
+            lambda: k4.sweep_record_frame(table, cam16, cfg, 1, **kw), 3)
+        plain_ms, (pimg, pres, pres2) = cuda_ms(
+            lambda: k4.sweep_record_frame_plain(table, cam16, cfg, 1, **kw),
+            1, warm=False)
+        img_vs = compare(img.cpu().numpy(), pimg.cpu().numpy(), COMPILED)
+        off = [float((a != b).float().mean())
+               for a, b in ((res, pres), (res2, pres2)) if a is not None]
+        log(f"[k4] {label}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms; "
+            f"image vs twin {img_vs}; residuals differing: "
+            f"{[f'{o:.5%}' for o in off]}")
+        check(img_vs["ok"], f"K4 {label}: image vs twin {img_vs}")
+        check(all(o <= 0.02 for o in off),
+              f"K4 {label}: residuals differ from the twin's on {off}")
+        check(res.dtype == torch.int16, "residuals are not int16")
+        dead = torch.cummax((res < 0).int(), dim=1).values.bool()
+        check(bool((res[dead] == -1).all()),
+              f"K4 {label}: a dead path's later bounce is not -1")
+        checks["k4"].append({
+            "shape": label, "max_abs_err": img_vs["max_abs_err"],
+            "residuals_off": off, "ms": ms, "plain_ms": plain_ms,
+            **forward_bound("k4", table.shape[0], cfg.num_pixels,
+                            cfg.samples_per_pixel, cfg.max_depth, rounds,
+                            1 + int(record_second))})
+        return img, res, res2
+
+    rounds = shared["bench_rounds"]
+    img, res, res2 = k4_check(f"{bench} record_second", table, cam16, cfg,
+                              rounds, record_second=True)
+    with torch.no_grad():
+        rep = replay_image(scene, cam, cfg, res, 1, res2=res2)
+    rep_vs = compare(rep.cpu().numpy(), img.cpu().numpy(), COMPILED)
+    log(f"[k4] torch replay of the kernel's residuals vs its image {rep_vs}")
+    check(rep_vs["ok"], f"replay does not reconstruct the K4 image {rep_vs}")
+    shared["k3_check"](f"{bench} edge 0.01 on K4's residuals", table, cam16,
+                       cfg, res, res2)
+    del res, res2, rep
+    _, res, _ = k4_check(f"{bench} record", table, cam16, cfg0, rounds)
+    shared["k3_check"](f"{bench} edge 0 on K4's residuals", table, cam16,
+                       cfg0, res, None)
+    del res
+    sl = shared["sl"]
+    label = "rtiow 1200x800 samples 128-129 depth 8"
+    k4_check(f"{label} record", shared["sl_table"], shared["sl_cam16"], sl,
+             shared["sl_rounds"], 128)
+    # The same paths through the three forward kernels, one call each.
+    geom, attr = k1._scene_tables(scene)
+    pids = torch.arange(k1.lane_pad(cfg.num_pixels), dtype=torch.int32,
+                        device=dev)
+    k1_ms, _ = cuda_ms(lambda: k1.render_lanes(
+        geom, attr, cam16, pids, frame_seed(cfg, 1), 0, cfg.samples_per_pixel,
+        cfg.max_depth, cfg.t_min, cfg.width, cfg.height), 3)
+    forward_ms = {"k1": k1_ms,
+                  "k2_record_second": checks["k2"][0]["ms"],
+                  "k2_record": checks["k2"][1]["ms"],
+                  "k4_record_second": checks["k4"][0]["ms"],
+                  "k4_record": checks["k4"][1]["ms"]}
+    log(f"[k4] {bench}, the same paths: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in forward_ms.items()) + f" on {smi}")
+
+    # ---- 14. stripe modes against the full launches -----------------------
+    n = cfg.num_pixels
+    local = n // 4
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    for name, record in (("k2", k2.record_frame),
+                         ("k4", k4.sweep_record_frame)):
+        img, res, res2 = record(table, cam16, cfg, 1, record_second=True)
+        w_tbl, w_cam = k3.replay_grad(table, cam16, cfg, res, g, 1, res2=res2)
+        d_tbl, d_cam = torch.zeros_like(w_tbl), torch.zeros_like(w_cam)
+        for base in range(0, n, local):
+            s_img, s_res, s_res2 = record(table, cam16, cfg, 1,
+                                          record_second=True,
+                                          pixel_base=base, num_local=local)
+            span = slice(base, base + local)
+            check(torch.equal(s_img, img.reshape(n, 3)[span])
+                  and torch.equal(s_res, res[:, :, span])
+                  and torch.equal(s_res2, res2[:, :, span]),
+                  f"{name} stripe at {base} differs from its full launch")
+            dt, dc = k3.replay_grad(table, cam16, cfg, s_res,
+                                    g[span].contiguous(), 1, res2=s_res2,
+                                    pixel_base=base, num_local=local)
+            d_tbl, d_cam = d_tbl + dt, d_cam + dc
+        glob = max(float(w_tbl.abs().max()), float(w_cam.abs().max()))
+        tbl_vs = grad_close(d_tbl.cpu(), w_tbl.cpu(), glob=glob)
+        cam_vs = grad_close(d_cam.cpu(), w_cam.cpu(), glob=glob)
+        log(f"[stripes] {name}: 4 stripes of {bench} bit-identical to the "
+            f"full launch; K3's stripes sum to the full d_table {tbl_vs}, "
+            f"d_cam {cam_vs}")
+        check(tbl_vs["ok"] and cam_vs["ok"],
+              f"K3's stripes on {name}'s residuals do not sum to the full "
+              f"cotangent")
+        del img, res, res2
+
+    # ---- 15. the sharded gradient path at full width ----------------------
+    # What the sharded gradients are held against: the unsharded gradient
+    # through the SAME recorder.  K2's is phase 11's; K4's is taken here,
+    # before the path's counts are zeroed.  K2 and K4 round differently, so
+    # they record different paths on ~0.1% of entries, the near-tangent and
+    # near-tie ones, whose gradients are the estimate's heavy tail: the two
+    # recorders' gradients agree in bulk only, under the JAX package's rule
+    # for two backends on this scene (tests/test_fast_grad.py: the largest
+    # error among the closest 98% of components is under 0.3 of the 99th
+    # percentile of the reference's magnitudes).
+    big, cam_big = shared["big"], shared["cam_big"]
+    unsharded = {"pallas": shared["g_full"]}
+    sweep_fn = make_fast_renderer(big, forward="sweep")
+    shared["flagship_grad"](sweep_fn)  # warm-up: allocations
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unsharded["sweep"] = shared["flagship_grad"](sweep_fn)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    err = (unsharded["sweep"] - unsharded["pallas"]).abs().flatten()
+    trimmed = float(torch.sort(err).values[:int(0.98 * err.numel())].max())
+    p99 = float(torch.quantile(unsharded["pallas"].abs().flatten(), 0.99))
+    log(f"[flagship grad] forward=sweep unsharded: {sweep_s:.3f} s/step, "
+        f"{big.rays_per_frame / sweep_s / 1e6:.1f}M paths/s fwd+bwd on {smi}; "
+        f"vs forward=pallas: largest error of the closest 98% of components "
+        f"{trimmed:.3e} against p99 magnitude {p99:.3e}, largest error "
+        f"{float(err.max()):.3e}")
+    check(bool(torch.isfinite(unsharded["sweep"]).all())
+          and trimmed < 0.3 * p99,
+          "the K4-recorded flagship gradient disagrees with the K2-recorded "
+          "one in bulk")
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0)
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and mesh.device.type == "cuda"
+          and mesh.distributed and mesh.world_size == 1,
+          f"the process group is not nccl on the card: {mesh}")
+    log(f"[sharded] torch.distributed group: backend {dist.get_backend()}, "
+        f"world size {mesh.world_size}, mesh {mesh.hosts}x{mesh.chips}, "
+        f"device {mesh.device}")
+    for wrapper in (k1.render_lanes, k2.record_frame, k3.replay_grad,
+                    k4.sweep_record_frame):
+        wrapper.launches = 0
+
+    sharded = {}
+    for forward in ("pallas", "sweep"):
+        render_fn = make_fast_renderer_sharded(big, mesh, forward=forward)
+
+        def gathered(sc, c, frame, render_fn=render_fn):
+            return render_fn(sc, c, frame, gather=True)
+
+        shared["flagship_grad"](gathered)  # warm-up: allocations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad = shared["flagship_grad"](gathered)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        vs = grad_close(grad.cpu(), unsharded[forward].cpu())
+        stats = dict(render_fn.stats)
+        sharded[forward] = {"s": secs, "vs_unsharded": vs, **stats,
+                            "paths_per_s": big.rays_per_frame / secs}
+        log(f"[sharded grad] forward={forward}: {secs:.3f} s/step, "
+            f"{big.rays_per_frame / secs / 1e6:.1f}M paths/s fwd+bwd "
+            f"(1200x800x256 depth 8, {scene.count} spheres, world size 1) "
+            f"on {smi}; vs the unsharded gradient {vs}; all-reduces "
+            f"{stats['all_reduces']} (2 steps), {stats['all_reduce_bytes']} "
+            f"B each")
+        check(bool(torch.isfinite(grad).all()) and vs["ok"],
+              f"sharded flagship gradient (forward={forward}) disagrees with "
+              f"the unsharded one through the same recorder")
+        check(stats["all_reduces"] == 2 and stats["all_reduce_bytes"]
+              == (11 * scene.count + 16) * 4,
+              f"the fast backward's all-reduce count or payload: {stats}")
+        del grad
+
+    t0 = time.perf_counter()
+    flag_img = render_mxu_sharded(scene, cam_big, big, mesh, 0, balance=True,
+                                  gather=True)
+    torch.cuda.synchronize()
+    mxu_s = time.perf_counter() - t0
+
+    ref_scene, ref_cam, ref_cfg = ref
+    r = Renderer(ref_cfg, backend="cuda-sharded", mesh=mesh)
+    frame_ms = []
+    for frame in range(2):
+        t0 = time.perf_counter()
+        img = r.render_frame(ref_scene, ref_cam)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"k1": k1.render_lanes.launches,
+                "k2": k2.record_frame.launches,
+                "k3": k3.replay_grad.launches,
+                "k4": k4.sweep_record_frame.launches}
+    dist.destroy_process_group()
+    # The unsharded renders they are held against (launched after the
+    # path's counts were read).
+    check(torch.equal(flag_img, k1.render_mxu(scene, cam_big, big)),
+          "render_mxu_sharded(balance=True) differs from render_mxu")
+    log(f"[sharded] render_mxu_sharded(balance=True) on the flagship frame: "
+        f"{mxu_s:.3f} s, bit-identical to render_mxu")
+    check(torch.equal(img, k1.render_mxu(ref_scene, ref_cam, ref_cfg, 1)),
+          'Renderer(backend="cuda-sharded") differs from render_mxu')
+    log('[sharded] Renderer(backend="cuda-sharded") reference frames, '
+        "bit-identical to render_mxu: "
+        + ", ".join(f"{m:.2f} ms" for m in frame_ms))
+    del flag_img
+
+    # ---- 16. launches -----------------------------------------------------
+    log(f"[launches] over the sharded path: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched by the sharded path: {launches}")
+    return launches, {"forward_ms_grad_bench": forward_ms,
+                      "flagship_grad_sweep_s": sweep_s,
+                      "flagship_grad_sweep_vs_pallas": {
+                          "trimmed_98_max_err": trimmed, "p99_abs": p99},
+                      "sharded_flagship_grad": sharded,
+                      "sharded_flagship_mxu_s": mxu_s,
+                      "sharded_reference_frame_ms": frame_ms}
 
 
 def main() -> int:
@@ -393,12 +771,13 @@ def main() -> int:
     # ---- 4a. K1 vs twin on the reference frame's lanes -------------------
     ref_cfg = RenderConfig(width=1920, height=1080, samples_per_pixel=64,
                            max_depth=3)
-    ref_scene = scenes.reference_scene(0, device=dev)[0]
-    ref_cam = scenes.rtiow_final_camera(ref_cfg.aspect, device=dev)
+    ref_scene = scenes.reference_scene(0)[0]  # the default device: the card
+    ref_cam = scenes.rtiow_final_camera(ref_cfg.aspect)
     ref_pids = torch.arange(k1.lane_pad(ref_cfg.num_pixels), dtype=torch.int32,
                             device=dev)
     args = lane_args(ref_scene, ref_cam, ref_cfg, ref_pids)
-    ref_ms, (fb, _) = cuda_ms(lambda: k1.render_lanes(*args), 5)
+    ref_ms, (fb, ln) = cuda_ms(lambda: k1.render_lanes(*args), 5)
+    ref_rounds = float(ln[:ref_cfg.num_pixels].sum())
     plain_ms, (fb_plain, _) = cuda_ms(lambda: k1.render_lanes_plain(*args), 1,
                                       warm=False)
     ref_vs_twin = compare(image(fb, ref_cfg), image(fb_plain, ref_cfg),
@@ -410,7 +789,9 @@ def main() -> int:
 
     # ---- 4. the main path: Renderer sessions + the flagship --------------
     k1.render_lanes.launches = 0
-    r = Renderer(ref_cfg, backend="cuda", device=dev)
+    r = Renderer(ref_cfg)  # the defaults: backend "cuda" on the card
+    check(r.backend == "cuda" and r.device.type == "cuda",
+          "Renderer's defaults are not the CUDA kernel on the card")
     frame_ms = []
     for _ in range(4):
         t0 = time.perf_counter()
@@ -427,8 +808,8 @@ def main() -> int:
 
     flag_cfg = RenderConfig(width=1200, height=800, samples_per_pixel=256,
                             max_depth=8)
-    flag_scene = scenes.rtiow_final_scene(0, device=dev)[0]
-    flag_cam = scenes.rtiow_final_camera(flag_cfg.aspect, device=dev)
+    flag_scene = scenes.rtiow_final_scene(0)[0]
+    flag_cam = scenes.rtiow_final_camera(flag_cfg.aspect)
     flag_s = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -458,20 +839,39 @@ def main() -> int:
     log(f"[launches] k1_render launches={launches} over the main path")
     check(launches > 0, "K1 was not launched by the main path")
 
-    k1_entry = {
-        "name": "k1_render", "route": "cuda",
-        "source": "bevy_raytrace_tpu_torch/csrc/k1_render.cu",
-        "replaces": "bevy_raytrace_tpu/kernels/mxu_render.py:99",
-        "launches": launches,
-        "max_abs_err": ref_vs_twin["max_abs_err"],
-        "ms": ref_ms, "plain_ms": plain_ms,
-    }
-    grad_entries, grad_stats = gradient_phases(dev, smi)
-    log(json.dumps({"kernels": [k1_entry, *grad_entries]}))
+    k1_check = {
+        "shape": "reference frame 1920x1080x64 depth 3",
+        "max_abs_err": ref_vs_twin["max_abs_err"], "ms": ref_ms,
+        "plain_ms": plain_ms,
+        **forward_bound("k1", ref_scene.count, ref_cfg.num_pixels,
+                        ref_cfg.samples_per_pixel, ref_cfg.max_depth,
+                        ref_rounds)}
+    grad_launches, grad_stats, shared = gradient_phases(dev, smi)
+    shard_launches, shard_stats = sharded_phases(
+        dev, smi, shared, (ref_scene, ref_cam, ref_cfg))
+    checks = shared["checks"]
+    csrc = "bevy_raytrace_tpu_torch/csrc/"
+    entries = [
+        kernel_entry("k1_render", csrc + "k1_render.cu",
+                     "bevy_raytrace_tpu/kernels/mxu_render.py:99", launches,
+                     [k1_check]),
+        kernel_entry("k2_record", csrc + "k2_record.cu",
+                     "bevy_raytrace_tpu/kernels/pallas_render.py:123",
+                     grad_launches["k2"], checks["k2"]),
+        kernel_entry("k3_replay_grad", csrc + "k3_replay_grad.cu",
+                     "bevy_raytrace_tpu/kernels/replay_grad.py:74",
+                     grad_launches["k3"], checks["k3"]),
+        kernel_entry("k4_sweep_record", csrc + "k4_sweep_record.cu",
+                     "bevy_raytrace_tpu/kernels/sweep_record.py:60",
+                     shard_launches["k4"], checks["k4"]),
+    ]
+    for entry, key in zip(entries, ("k1", "k2", "k3", "k4")):
+        entry["launches_sharded_path"] = shard_launches[key]
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"build_s": build_s, "verify_ms": verify_times,
                     "reference_frame_ms": frame_ms,
                     "flagship_s": flag_s, "flagship_rays_per_s": flag_rps,
-                    **grad_stats}))
+                    **grad_stats, **shard_stats}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

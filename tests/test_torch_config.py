@@ -5,6 +5,7 @@ import dataclasses
 import pytest
 import torch
 
+
 import bevy_raytrace_tpu.config as ref
 import bevy_raytrace_tpu_torch.config as port
 

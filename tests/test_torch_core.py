@@ -14,6 +14,7 @@ from bevy_raytrace_tpu import scenes as jsc
 from bevy_raytrace_tpu.core import geometry as jgeo
 from bevy_raytrace_tpu.core import materials as jmat
 from bevy_raytrace_tpu.core.types import Ray as JRay
+from bevy_raytrace_tpu_torch import set_default_device
 from bevy_raytrace_tpu_torch.core import geometry as tgeo
 from bevy_raytrace_tpu_torch.core import materials as tmat
 from bevy_raytrace_tpu_torch.core.types import Ray as TRay
@@ -23,6 +24,7 @@ from bevy_raytrace_tpu_torch.interop import (
 )
 
 torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
 
 ATOL = 2e-5
 

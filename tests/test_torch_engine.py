@@ -5,12 +5,14 @@ import pytest
 import torch
 
 from bevy_raytrace_tpu_torch import RenderConfig
+from bevy_raytrace_tpu_torch import set_default_device
 from bevy_raytrace_tpu_torch import scenes as tsc
 from bevy_raytrace_tpu_torch.utils.metrics import FrameTimer
 from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
 from bevy_raytrace_tpu_torch.wavefront.render import render
 
 torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
 
 CFG = RenderConfig(width=32, height=16, samples_per_pixel=2, max_depth=3)
 

@@ -36,6 +36,7 @@ from bevy_raytrace_tpu.kernels.pallas_render import render_pallas
 from bevy_raytrace_tpu.kernels.replay_grad import replay_grad as j_replay_grad
 from bevy_raytrace_tpu.wavefront.render import render as j_render
 from bevy_raytrace_tpu_torch import RenderConfig
+from bevy_raytrace_tpu_torch import set_default_device
 from bevy_raytrace_tpu_torch import scenes as tsc
 from bevy_raytrace_tpu_torch.core.camera import Camera
 from bevy_raytrace_tpu_torch.interop import (
@@ -65,6 +66,7 @@ from bevy_raytrace_tpu_torch.parity import grad_close
 from bevy_raytrace_tpu_torch.wavefront.render import render
 
 torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
 
 KW = dict(width=48, height=32, samples_per_pixel=2, max_depth=3)
 CAM_SLICES = [slice(0, 3), slice(3, 6), slice(6, 9), slice(9, 12),
@@ -223,7 +225,10 @@ def test_grad_spp_chunk_matches_unchunked():
 
 
 BAD = {
-    "forward=sweep": (dict(forward="sweep"), NotImplementedError, "K4"),
+    "sweep with chunk": (dict(forward="sweep", grad_spp_chunk=1), ValueError,
+                         "chunked"),
+    "sweep with clusters": (dict(forward="sweep", clusters=object()),
+                            ValueError, "unpermuted"),
     "clusters": (dict(clusters=object()), NotImplementedError, "clusters"),
     "chunk with torch": (dict(backward="torch", grad_spp_chunk=1), ValueError,
                          "kernel"),
@@ -249,8 +254,13 @@ def test_replay_grad_rejects_what_it_does_not_take():
     g = torch.zeros((cfg.height, cfg.width, 3))
     with pytest.raises(ValueError, match="res2"):
         k3.replay_grad(table, cam16, cfg, res, g)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Stripe mode: res and g must be the stripe's.
+    with pytest.raises(ValueError, match="shape"):
         k3.replay_grad(table, cam16, cfg, res, g, res2=res2, num_local=64)
+    with pytest.raises(ValueError, match="shape"):
+        k3.replay_grad(table, cam16, cfg, res[:, :, :64].contiguous(), g,
+                       res2=res2[:, :, :64].contiguous(), pixel_base=0,
+                       num_local=64)
     with pytest.raises(TypeError, match="int16 or int32"):
         k3.replay_grad(table, cam16, cfg, res.long(), g, res2=res2)
     with pytest.raises(ValueError, match="shape"):

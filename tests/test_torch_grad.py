@@ -23,6 +23,7 @@ from bevy_raytrace_tpu import RenderConfig as JConfig
 from bevy_raytrace_tpu import scenes as jsc
 from bevy_raytrace_tpu.wavefront.render import render as jrender
 from bevy_raytrace_tpu_torch import RenderConfig
+from bevy_raytrace_tpu_torch import set_default_device
 from bevy_raytrace_tpu_torch import scenes as tsc
 from bevy_raytrace_tpu_torch.core.camera import Camera
 from bevy_raytrace_tpu_torch.interop import (
@@ -37,6 +38,7 @@ from bevy_raytrace_tpu_torch.parity import grad_close
 from bevy_raytrace_tpu_torch.wavefront.render import render
 
 torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
 
 KW = dict(width=48, height=32, samples_per_pixel=2, max_depth=3)
 # pack()'s fields: origin, u, v, w, half_width, half_height, lens, focus.

@@ -17,8 +17,13 @@ def test_import_does_not_load_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import bevy_raytrace_tpu_torch as p\n"
+        "seen = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    seen.add(m.name[len(p.__name__) + 1:])\n"
+        "new = {'shard.mesh', 'shard.render_sharded', 'shard.worker',\n"
+        "       'kernels.sweep_record', 'inverse.shard_grad', 'device'}\n"
+        "assert new <= seen, new - seen\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith("
         "('jax.', 'bevy_raytrace_tpu.')) or k == 'bevy_raytrace_tpu')\n"
         "assert not bad, bad\n"
@@ -36,5 +41,9 @@ def test_no_module_imports_jax():
                          re.M)
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 15
+    names = {str(f.relative_to(PKG)) for f in files}
+    assert {"shard/mesh.py", "shard/render_sharded.py", "shard/worker.py",
+            "kernels/sweep_record.py", "inverse/shard_grad.py",
+            "device.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders

@@ -24,6 +24,7 @@ from bevy_raytrace_tpu import RenderConfig as JConfig
 from bevy_raytrace_tpu import scenes as jsc
 from bevy_raytrace_tpu.kernels.mxu_render import render_mxu_with_len as j_k1
 from bevy_raytrace_tpu_torch import RenderConfig
+from bevy_raytrace_tpu_torch import set_default_device
 from bevy_raytrace_tpu_torch import scenes as tsc
 from bevy_raytrace_tpu_torch.interop import (
     camera_from_reference,
@@ -34,6 +35,7 @@ from bevy_raytrace_tpu_torch.parity import COMPILED, INTERPRET, compare
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render
 
 torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
 
 SCENES = {
     "config1": (lambda: jsc.baseline_config1_scene(),

@@ -21,6 +21,7 @@ from bevy_raytrace_tpu import scenes as jsc
 from bevy_raytrace_tpu.core.types import make_scene as j_make_scene
 from bevy_raytrace_tpu.kernels.pallas_render import render_pallas
 from bevy_raytrace_tpu_torch import RenderConfig
+from bevy_raytrace_tpu_torch import set_default_device
 from bevy_raytrace_tpu_torch import scenes as tsc
 from bevy_raytrace_tpu_torch.core.types import make_scene
 from bevy_raytrace_tpu_torch.interop import (
@@ -33,6 +34,7 @@ from bevy_raytrace_tpu_torch.kernels import record as k2
 from bevy_raytrace_tpu_torch.parity import INTERPRET, compare
 
 torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
 
 KW = dict(width=48, height=32, samples_per_pixel=2, max_depth=3)
 
@@ -144,12 +146,15 @@ def test_recorder_rejects_what_it_does_not_take():
     cfg = RenderConfig(**KW)
     scene, _ = tsc.baseline_config1_scene()
     cam = tsc.baseline_config1_camera(cfg.aspect)
-    for option in ({"clusters": object()}, {"pixel_base": 0},
-                   {"num_local": 64}):
+    for render in (k2.render_record, k2.render_record_plain):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            k2.render_record(scene, cam, cfg, **option)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            k2.render_record_plain(scene, cam, cfg, **option)
+            render(scene, cam, cfg, clusters=object())
+        # Stripe mode takes pixel_base with num_local, inside the frame.
+        with pytest.raises(ValueError, match="num_local"):
+            render(scene, cam, cfg, pixel_base=0)
+        for base, local in ((0, 0), (-1, 64), (cfg.num_pixels - 63, 64)):
+            with pytest.raises(ValueError, match="inside the frame"):
+                render(scene, cam, cfg, pixel_base=base, num_local=local)
     table, cam16 = k2._operands(scene, cam)
     with pytest.raises(ValueError, match="record_second"):
         k2.record_frame(table, cam16, cfg, with_residuals=False,

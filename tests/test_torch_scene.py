@@ -9,6 +9,7 @@ import torch
 from bevy_raytrace_tpu import scenes as jsc
 from bevy_raytrace_tpu.core.camera import Camera as JCamera
 from bevy_raytrace_tpu_torch import scenes as tsc
+from bevy_raytrace_tpu_torch import set_default_device
 from bevy_raytrace_tpu_torch.core.camera import Camera as TCamera
 from bevy_raytrace_tpu_torch.interop import (
     camera_from_arrays,
@@ -20,6 +21,7 @@ from bevy_raytrace_tpu_torch.interop import (
 from bevy_raytrace_tpu_torch.scenes.registry import MaterialRegistry
 
 torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
 
 BUILDERS = {
     "config1": lambda m: m.baseline_config1_scene(),

@@ -16,6 +16,7 @@ from bevy_raytrace_tpu import RenderConfig as JConfig
 from bevy_raytrace_tpu import scenes as jsc
 from bevy_raytrace_tpu.wavefront.render import render as jrender
 from bevy_raytrace_tpu_torch import RenderConfig
+from bevy_raytrace_tpu_torch import set_default_device
 from bevy_raytrace_tpu_torch import scenes as tsc
 from bevy_raytrace_tpu_torch.interop import (
     camera_from_reference,
@@ -29,6 +30,7 @@ from bevy_raytrace_tpu_torch.wavefront.render import (
 )
 
 torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
 
 SCENES = {
     "config1": (lambda: jsc.baseline_config1_scene(),
