@@ -44,8 +44,8 @@
 //
 // The update of (best_t, best) is written as two nested `if`s on purpose:
 // written as one joint condition the same sweep runs 1.6x slower on the card
-// (a code-generation effect, measured by profile_sweep.py, which builds the
-// joint form with -DBRT_K1_JOINT_CONDITION and holds the outputs equal).
+// with bit-identical output (a code-generation effect of nvcc 12; the two
+// forms were built from one source and timed interleaved, PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -103,22 +103,12 @@ __global__ void __launch_bounds__(kThreads)
           const float sq = disc * rsqrtf(disc);
           const float rn = -hb - sq;
           const float tn = rn > t_min ? rn : sq - hb;
-#ifdef BRT_K1_JOINT_CONDITION
-          // Measurement probe (profile_sweep.py): the condition as one
-          // expression.  Same output bit for bit, but nvcc 12.8 compiles it
-          // into a sweep that takes 1.6x the time (PERF.md).
-          if (tn > t_min && (best < 0 || tn < best_t)) {
-            best_t = tn;
-            best = i;
-          }
-#else
           if (tn > t_min) {
             if (best < 0 || tn < best_t) {
               best_t = tn;
               best = i;
             }
           }
-#endif
         }
       }
       if (best < 0) {  // miss: sky, and the path ends

@@ -54,8 +54,9 @@
 // -fmad=false the kernel reproduces its plain PyTorch twin bit for bit on
 // the card (image and residuals) and the torch replay of its residuals
 // comes a little closer to its image, but it takes 12-18% longer
-// (profile_sweep.py); either build replays far inside the parity
-// thresholds, so the faster one is kept.  The nearest-hit update is two
+// (PERF.md); either build replays far inside the parity thresholds, so the
+// faster one is kept.  To repeat the comparison, add the flag under this
+// kernel's name in build.py's EXTRA_FLAGS.  The nearest-hit update is two
 // nested `if`s, not one joint condition: see k1_render.cu.
 
 #include <cuda_runtime.h>

@@ -6,9 +6,8 @@ a hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one loads the existing `.so`.  The sources expose plain `extern
 "C"` launchers: no PyTorch header is compiled, which keeps a build to
 seconds.  Nothing here runs at import time.  `defines` (macro=value strings,
-passed as -D; a string that starts with "-" is passed as the nvcc flag it is)
-build a variant of a library beside it, under its own hash: `profile_grad.py`
-and `profile_sweep.py` build the kernels' measurement probes that way.
+passed as -D) build a variant of a library beside it, under its own hash:
+`profile_grad.py` builds K3's measurement probes that way.
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ def _nvcc() -> str:
 
 def _flags(name: str, defines: tuple = ()) -> tuple:
     return (NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-            + tuple(d if d.startswith("-") else f"-D{d}" for d in defines))
+            + tuple(f"-D{d}" for d in defines))
 
 
 def _key(name: str, defines: tuple) -> str:

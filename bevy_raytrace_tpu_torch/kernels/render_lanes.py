@@ -192,11 +192,9 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
 # --- the wrapper ----------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _k1_launcher(defines: tuple = ()):
-    """K1's launcher; `defines` select a measurement probe's build (see
-    csrc/k1_render.cu)."""
-    lib = build.load("k1_render", defines)
+@functools.lru_cache(maxsize=1)
+def _k1_launcher():
+    lib = build.load("k1_render")
     fn = lib.brt_k1_render
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, i32, vp, vp, i32, vp, vp, ctypes.c_uint,

@@ -112,11 +112,9 @@ def sweep_record_frame_plain(table, cam16, config: RenderConfig,
 # --- the wrapper ----------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _k4_launcher(defines: tuple = ()):
-    """K4's launcher; `defines` select a measurement build (profile_sweep.py
-    builds it with -fmad=false)."""
-    lib = build.load("k4_sweep_record", defines)
+@functools.lru_cache(maxsize=1)
+def _k4_launcher():
+    lib = build.load("k4_sweep_record")
     fn = lib.brt_k4_sweep_record
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)

@@ -1,5 +1,5 @@
-"""Where the time of the port's gradient path goes on one NVIDIA GPU, and
-what bounds K3.
+"""Where the time of the port's gradient path goes on one NVIDIA GPU, what
+bounds K3, and the forward kernels side by side.
 
     python3 -m bevy_raytrace_tpu_torch.profile_grad [--out DIR] [--reps N]
 
@@ -25,6 +25,13 @@ what bounds K3.
    edge 0).  Each shape also reports the hit bounces per path and the share
    of them on the most-hit sphere, which set the atomics' count and
    contention.
+3. Forward kernels on the same paths: K1 (the forward render, identity
+   lanes), K2 (the recorder on the expanded quadratic) and K4 (the recorder
+   on K1's dense sweep), each recorder with and without the runner-up,
+   interleaved and timed with CUDA events at the gradient bench, a
+   32-sample slice of the flagship (rtiow, 1200x800, depth 8) and the
+   reference frame (reference_scene, 1920x1080, 64 spp, depth 3), with the
+   executed rounds per path from K1's `len` output.
 
 Prints a line per measurement, then the card's name and power limit, then
 one JSON object with every number.  `--out DIR` also writes the profiler
@@ -274,6 +281,79 @@ def k3_probes(dev, reps):
     return out, ptxas
 
 
+def forward_kernels(dev, reps):
+    """Part 3 -> {shape: {spheres, paths, rounds_per_path, ms: {kernel:
+    [ms, ...]}}}."""
+    import numpy as np
+    import torch
+
+    from bevy_raytrace_tpu_torch import RenderConfig, scenes
+    from bevy_raytrace_tpu_torch.kernels import record as k2
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
+    from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
+
+    rtiow = (scenes.rtiow_final_scene, scenes.rtiow_final_camera)
+    shapes = {
+        "grad_bench": (rtiow, RenderConfig(width=400, height=300,
+                                           samples_per_pixel=16, max_depth=8,
+                                           edge_softness=0.01)),
+        "flagship_slice_32spp": (rtiow, RenderConfig(
+            width=1200, height=800, samples_per_pixel=32, max_depth=8)),
+        "reference_frame": ((scenes.reference_scene,
+                             scenes.rtiow_final_camera),
+                            RenderConfig(width=1920, height=1080,
+                                         samples_per_pixel=64, max_depth=3)),
+    }
+    out = {}
+    for name, ((scene_fn, cam_fn), cfg) in shapes.items():
+        scene = scene_fn(device=dev)[0]
+        cam = cam_fn(cfg.aspect, device=dev)
+        table, cam16 = k2._operands(scene, cam)
+        geom, attr = k1._scene_tables(scene)
+        pids = torch.arange(k1.lane_pad(cfg.num_pixels), dtype=torch.int32,
+                            device=dev)
+
+        def run_k1():
+            return k1.render_lanes(geom, attr, cam16, pids,
+                                   frame_seed(cfg, 1), 0,
+                                   cfg.samples_per_pixel, cfg.max_depth,
+                                   cfg.t_min, cfg.width, cfg.height)
+
+        runs = {"k1": run_k1}
+        for label, fn in (("k2", k2.record_frame),
+                          ("k4", k4.sweep_record_frame)):
+            for second in (False, True):
+                runs[label + "_record" + "_second" * second] = (
+                    lambda fn=fn, second=second: fn(table, cam16, cfg, 1,
+                                                    record_second=second))
+        stats = {"spheres": scene.count, "paths": cfg.rays_per_frame,
+                 "rounds_per_path": float(run_k1()[1][:cfg.num_pixels].sum())
+                 / cfg.rays_per_frame,
+                 "ms": {k: [] for k in runs}}
+        for fn in runs.values():  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            for k, fn in runs.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                stats["ms"][k].append(start.elapsed_time(end))
+        log(f"[forward] {name}: {scene.count} spheres, {cfg.rays_per_frame} "
+            f"paths, {stats['rounds_per_path']:.3f} executed rounds per path")
+        base = float(np.median(stats["ms"]["k1"]))
+        for k, ms in stats["ms"].items():
+            med = float(np.median(ms))
+            log(f"[forward]   {k:18s} median {med:9.3f} ms ({med / base:6.3f} "
+                f"x k1); runs {[round(m, 3) for m in ms]}")
+        out[name] = stats
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -281,7 +361,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the profiler tables")
     ap.add_argument("--reps", type=int, default=5,
-                    help="interleaved rounds of the K3 probes")
+                    help="interleaved rounds of the K3 probes and of the "
+                         "forward kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_grad: no CUDA device", file=sys.stderr)
@@ -292,10 +373,11 @@ def main(argv=None) -> int:
     smi = smi_line()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
     probes, ptxas = k3_probes(dev, args.reps)
+    forward = forward_kernels(dev, args.reps)
     prof = profile_steps(dev, args.out)
     log(smi)
     log(json.dumps({"device": smi, "k3_probes": probes, "k3_ptxas": ptxas,
-                    "profile": prof}))
+                    "forward_kernels": forward, "profile": prof}))
     return 0
 
 

@@ -122,20 +122,23 @@ def cuda_ms(fn, reps, warm=True):
 # tensor cores, and device memory.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# Float32 operations per ray-sphere test, counted from the sources.  K1/K4
-# (k1_render.cu:92-96, k4_sweep_record.cu's sweep): oc 3, hb 5, cq 6,
-# disc 2; the root (rsqrt, two candidates) runs only where disc > 0 and is
-# not counted.  K2 (k2_record.cu:94-102) on the expanded quadratic: c.d 5,
-# o.c 5, half_b 1, cq 3, disc 2, sqrt 1, both roots 4, for every sphere.
-SWEEP_FLOPS = {"k1": 16, "k4": 16, "k2": 21}
+# Float32 operations that a ray-sphere test needs: the discriminant.  K1/K4
+# (the centered quadratic of k1_render.cu's and k4_sweep_record.cu's sweep):
+# oc 3, hb 5, cq 6, disc 2.  K2 (k2_record.cu, the expanded quadratic): c.d
+# 5, o.c 5, half_b 1, cq 3, disc 2.  The root is needed only where disc > 0
+# (a small share of the tests) and is not counted, although K2 executes its
+# sqrtf and both roots for every sphere: the bound counts what the function
+# needs, not what a kernel chooses to execute.
+SWEEP_FLOPS = {"k1": 16, "k4": 16, "k2": 16}
 # Per executed round (hit frame, scatter, sky; ~40 + ~70 + ~10) and per path
 # (the thin-lens camera ray), from common.cuh.
 ROUND_FLOPS = 120
 CAMERA_FLOPS = 70
-# K3 (k3_replay_grad.cu): per hit bounce, hit_forward twice (forward sweep
-# and the reverse sweep's recompute, ~90 each), hit_adjoint (~110) and up to
-# 9 row adds; per path, the camera ray and its adjoint (~150) and the sky's.
-K3_HIT_FLOPS = 300
+# K3 (k3_replay_grad.cu): per hit bounce, one hit_forward (~90) and its
+# hit_adjoint (~110); per path, the camera ray and its adjoint (~150) and
+# the sky's.  The kernel runs hit_forward a second time in its reverse
+# sweep: a recompute it chose instead of storing, so not counted.
+K3_HIT_FLOPS = 200
 K3_PATH_FLOPS = 160
 
 

@@ -11,7 +11,8 @@ Bounds (64x32, 2 spp, depth 3, frame 1):
     elsewhere: the TPU kernel breaks near-ties between spheres on a packed
     key (t truncated to 22 bits | index), the port on the full float32 t.
     Measured here: identical on every entry of config1, config2 and the
-    all-materials scene, res and res2;
+    all-materials scene, res and res2; 99.98% on rtiow_final(grid=2), 20
+    spheres (2 of 12,288 entries each);
   * replay: the twin's residuals reconstruct its image to 5e-5
     (tests/test_fast_grad.py:197-219's bound);
   * gradients of forward="sweep" against the JAX package's, on config1:
@@ -72,6 +73,8 @@ SCENES = {
                 jsc.baseline_config2_camera, 0.995),
     "all_materials": (lambda: j_make_scene(**ALL_MATERIALS),
                       jsc.baseline_config2_camera, 0.995),
+    "rtiow_small": (lambda: jsc.rtiow_final_scene(0, grid=2)[0],
+                    jsc.rtiow_final_camera, 0.995),
 }
 
 
