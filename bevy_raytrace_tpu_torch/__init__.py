@@ -13,6 +13,8 @@ Public API:
     inverse rendering through the K2, K3 and K4 kernels),
     shard.*  (one process per device: make_mesh, render_sharded,
     render_mxu_sharded) and inverse.make_fast_renderer_sharded,
+    io.*  (tonemap, PNG/PPM/EXR writers, FrameWriter) and the command line
+    `python -m bevy_raytrace_tpu_torch.cli render|animate|serve|inverse`,
     default_device, set_default_device  (scenes, cameras and renderers live on the
     CUDA device unless the caller asks for the CPU)
 """

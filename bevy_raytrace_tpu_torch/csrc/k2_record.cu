@@ -30,9 +30,31 @@
 //     order, and the sum is divided by spp once, as the v1 kernel's
 //     accumulation across its spp grid axis does.
 //
-// Left out, as TPU devices or later work: the (tile_rows, 128) plane layout
-// and unroll padding, skip_dead_tiles, and the cluster-culled broad phase
-// (`clusters=`).
+//   * with CLUSTERED the per-sphere loop is culled (the v1 kernel's
+//     `clusters=` broad phase): the sphere rows arrive gathered into the
+//     plan's Morton order, cluster c owning rows [c L, min((c + 1) L, S)),
+//     and each bounce tests the ray against every cluster's bounding sphere
+//     (bounds[c] = (bx, by, bz, |b|^2 - br^2), recomputed from live geometry
+//     by the host for every launch) with the expanded quadratic: the cluster
+//     is walked when sqrt(hb^2 - cq) - hb > t_min (NaN compares false), else
+//     skipped.  The members go through the SAME per-sphere test as the
+//     brute-force loop (test_sphere below), so the result differs from it
+//     only where two different spheres tie exactly (members are visited in
+//     Morton order, not scene order) or where a bound is not conservative,
+//     which would be a bug.  Residuals store members[row], the SCENE index,
+//     so the replay needs no plan.
+//
+// The TPU kernel's cull is per tile: hit bits of 1024+ rays are OR-ed into
+// bit-mask words, compacted into an SMEM worklist, and every ray of the tile
+// walks every flagged cluster in unroll-sized blocks (hence its padded
+// clusters).  Here a thread owns a ray: it skips a cluster its own ray
+// misses, and the warp's divergence does what the worklist did.  The cull is
+// per thread on purpose: no warp-wide primitive is used, since the last
+// block's warp is partly retired by the bounds check and dead paths leave
+// the bounce body early.  No pad rows are visited.
+//
+// Left out, as TPU devices: the (tile_rows, 128) plane layout and unroll
+// padding, skip_dead_tiles, the bit-mask words and the SMEM worklist.
 //
 // What bounds it on an H100: fp32 issue in the sphere loop and divergence
 // between the paths of a warp, as for K1.  The residual stores are 2 (int16)
@@ -50,12 +72,56 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// The nearest hit (bt, bidx) and, with RECORD == 2, the runner-up (bt2,
+// bidx2) of one bounce.
+struct Nearest {
+  float bt, bt2;
+  int bidx, bidx2;
+};
+
+// One ray-sphere test of the expanded quadratic against row i, g =
+// geom[i], folded into the nearest hit: strict <, so the first row visited
+// wins an exact tie.  `tn != bt` keeps a row that ties the winner exactly
+// from becoming its runner-up.
+template <int RECORD>
+__device__ __forceinline__ void test_sphere(const float4 g, int i,
+                                            const float o[3], const float d[3],
+                                            float o_dot_d, float o2,
+                                            float t_min, Nearest& nh) {
+  const float c_dot_d = g.x * d[0] + g.y * d[1] + g.z * d[2];
+  const float o_dot_c = o[0] * g.x + o[1] * g.y + o[2] * g.z;
+  const float half_b = o_dot_d - c_dot_d;
+  const float cq = o2 - 2.0f * o_dot_c + g.w;
+  const float disc = half_b * half_b - cq;
+  const float sq = sqrtf(disc);  // NaN on a miss: every compare fails
+  const float rn = -half_b - sq;
+  const float tn = rn > t_min ? rn : -half_b + sq;
+  const bool better = tn > t_min && tn < nh.bt;
+  if (RECORD == 2) {
+    if (better) {
+      nh.bt2 = nh.bt;
+      nh.bidx2 = nh.bidx;
+    } else if (tn > t_min && tn < nh.bt2 && tn != nh.bt) {
+      nh.bt2 = tn;
+      nh.bidx2 = i;
+    }
+  }
+  if (better) {
+    nh.bt = tn;
+    nh.bidx = i;
+  }
+}
+
 // geom[i] = (cx, cy, cz, |c|^2 - r^2); attr[2i] = (1/r, albedo r, g, b),
-// attr[2i+1] = (kind, fuzz, ior, 0).
-template <typename ResT, int RECORD>
+// attr[2i+1] = (kind, fuzz, ior, 0).  CLUSTERED: rows in the plan's order,
+// bounds [n_clusters] float4, members [n_spheres] row -> scene index.
+template <typename ResT, int RECORD, bool CLUSTERED>
 __global__ void __launch_bounds__(kThreads)
     k2_record_kernel(const float4* __restrict__ geom,
                      const float4* __restrict__ attr, int n_spheres,
+                     const float4* __restrict__ bounds,
+                     const int* __restrict__ members, int n_clusters,
+                     int cluster_size,
                      const float* __restrict__ cam_in, int pixel_base,
                      int n_pix, float* __restrict__ img,
                      ResT* __restrict__ res,
@@ -95,37 +161,40 @@ __global__ void __launch_bounds__(kThreads)
       // ---- per-sphere loop, expanded quadratic ---------------------------
       const float o_dot_d = o[0] * d[0] + o[1] * d[1] + o[2] * d[2];
       const float o2 = o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
-      float bt = t_max, bt2 = t_max;
-      int bidx = -1, bidx2 = -1;
-      for (int i = 0; i < n_spheres; ++i) {
-        const float4 g = __ldg(geom + i);
-        const float c_dot_d = g.x * d[0] + g.y * d[1] + g.z * d[2];
-        const float o_dot_c = o[0] * g.x + o[1] * g.y + o[2] * g.z;
-        const float half_b = o_dot_d - c_dot_d;
-        const float cq = o2 - 2.0f * o_dot_c + g.w;
-        const float disc = half_b * half_b - cq;
-        const float sq = sqrtf(disc);  // NaN on a miss: every compare fails
-        const float rn = -half_b - sq;
-        const float tn = rn > t_min ? rn : -half_b + sq;
-        const bool better = tn > t_min && tn < bt;
-        if (RECORD == 2) {
-          if (better) {
-            bt2 = bt;
-            bidx2 = bidx;
-          } else if (tn > t_min && tn < bt2 && tn != bt) {
-            bt2 = tn;
-            bidx2 = i;
-          }
+      Nearest nh = {t_max, t_max, -1, -1};
+      if (CLUSTERED) {
+        for (int ci = 0; ci < n_clusters; ++ci) {
+          const float4 bs = __ldg(bounds + ci);
+          const float c_dot_d = bs.x * d[0] + bs.y * d[1] + bs.z * d[2];
+          const float o_dot_c = o[0] * bs.x + o[1] * bs.y + o[2] * bs.z;
+          const float hb = o_dot_d - c_dot_d;
+          const float cq = o2 - 2.0f * o_dot_c + bs.w;
+          const float rfar = sqrtf(hb * hb - cq) - hb;
+          if (!(rfar > t_min)) continue;  // NaN: the ray misses the bound
+          const int lo = ci * cluster_size;
+          const int hi = min(lo + cluster_size, n_spheres);
+          for (int i = lo; i < hi; ++i)
+            test_sphere<RECORD>(__ldg(geom + i), i, o, d, o_dot_d, o2, t_min,
+                                nh);
         }
-        if (better) {
-          bt = tn;
-          bidx = i;
-        }
+      } else {
+        for (int i = 0; i < n_spheres; ++i)
+          test_sphere<RECORD>(__ldg(geom + i), i, o, d, o_dot_d, o2, t_min,
+                              nh);
       }
+      const float bt = nh.bt;
+      const int bidx = nh.bidx;
       const bool hit = bt < t_max;
-      if (RECORD >= 1) res[slot] = static_cast<ResT>(hit ? bidx : -1);
-      if (RECORD == 2)
-        res2[slot] = static_cast<ResT>(hit && bt2 < t_max ? bidx2 : -1);
+      if (RECORD >= 1) {
+        const int widx = CLUSTERED && hit ? __ldg(members + bidx) : bidx;
+        res[slot] = static_cast<ResT>(hit ? widx : -1);
+      }
+      if (RECORD == 2) {
+        const bool hit2 = hit && nh.bt2 < t_max;
+        const int widx2 =
+            CLUSTERED && hit2 ? __ldg(members + nh.bidx2) : nh.bidx2;
+        res2[slot] = static_cast<ResT>(hit2 ? widx2 : -1);
+      }
       if (!hit) {  // sky, and the path ends
         float sk_r, sk_g;
         brt::sky(d[1], sk_r, sk_g);
@@ -179,16 +248,20 @@ __global__ void __launch_bounds__(kThreads)
   img[3 * i_loc + 2] = acc_b / fspp;
 }
 
-template <typename ResT, int RECORD>
-int launch(const void* geom, const void* attr, int n_spheres, const void* cam,
+template <typename ResT, int RECORD, bool CLUSTERED>
+int launch(const void* geom, const void* attr, int n_spheres,
+           const void* bounds, const void* members, int n_clusters,
+           int cluster_size, const void* cam,
            int pixel_base, int n_pix, void* img, void* res, void* res2,
            unsigned int seed,
            unsigned int sample_base, int spp, int max_depth, float t_min,
            float t_max, int width, int height, cudaStream_t stream) {
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  k2_record_kernel<ResT, RECORD><<<blocks, kThreads, 0, stream>>>(
+  k2_record_kernel<ResT, RECORD, CLUSTERED><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float4*>(geom), static_cast<const float4*>(attr),
-      n_spheres, static_cast<const float*>(cam), pixel_base, n_pix,
+      n_spheres, static_cast<const float4*>(bounds),
+      static_cast<const int*>(members), n_clusters, cluster_size,
+      static_cast<const float*>(cam), pixel_base, n_pix,
       static_cast<float*>(img), static_cast<ResT*>(res),
       static_cast<ResT*>(res2), seed, sample_base, spp, max_depth, t_min,
       t_max, width, height);
@@ -202,10 +275,16 @@ int launch(const void* geom, const void* attr, int n_spheres, const void* cam,
 // res2 [spp, max_depth, n_pix] of res_bytes (2: int16, 4: int32) each.
 // record: 0 = image only (res, res2 unused), 1 = res, 2 = res and res2.
 // Thread i renders the absolute pixel pixel_base + i.
+// bounds != nullptr selects the cluster-culled loop: geom/attr rows are then
+// in the plan's order, bounds is [n_clusters] float4, members [n_spheres]
+// int32 (row -> scene index) and cluster_size >= 1 the rows per cluster;
+// otherwise the three are unused.
 // Returns the launch's cudaError_t, or cudaErrorInvalidValue for arguments
 // it does not take; the kernel itself runs asynchronously.
 extern "C" int brt_k2_record(const void* geom, const void* attr,
-                             int n_spheres, const void* cam, int pixel_base,
+                             int n_spheres, const void* bounds,
+                             const void* members, int n_clusters,
+                             int cluster_size, const void* cam, int pixel_base,
                              int n_pix, void* img, void* res, void* res2,
                              int res_bytes,
                              int record, unsigned int seed,
@@ -214,14 +293,22 @@ extern "C" int brt_k2_record(const void* geom, const void* attr,
                              void* stream) {
   if (n_pix <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BRT_K2_ARGS                                                       \
-  geom, attr, n_spheres, cam, pixel_base, n_pix, img, res, res2, seed,    \
-      sample_base, spp, max_depth, t_min, t_max, width, height, st
-  if (record == 0) return launch<int16_t, 0>(BRT_K2_ARGS);
-  if (res_bytes == 2 && record == 1) return launch<int16_t, 1>(BRT_K2_ARGS);
-  if (res_bytes == 2 && record == 2) return launch<int16_t, 2>(BRT_K2_ARGS);
-  if (res_bytes == 4 && record == 1) return launch<int32_t, 1>(BRT_K2_ARGS);
-  if (res_bytes == 4 && record == 2) return launch<int32_t, 2>(BRT_K2_ARGS);
+  const bool clustered = bounds != nullptr;
+  if (clustered && (members == nullptr || n_clusters < 1 || cluster_size < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define BRT_K2_ARGS                                                        \
+  geom, attr, n_spheres, bounds, members, n_clusters, cluster_size, cam,   \
+      pixel_base, n_pix, img, res, res2, seed, sample_base, spp, max_depth, \
+      t_min, t_max, width, height, st
+#define BRT_K2_DISPATCH(T, R)                                   \
+  return clustered ? launch<T, R, true>(BRT_K2_ARGS)            \
+                   : launch<T, R, false>(BRT_K2_ARGS)
+  if (record == 0) BRT_K2_DISPATCH(int16_t, 0);
+  if (res_bytes == 2 && record == 1) BRT_K2_DISPATCH(int16_t, 1);
+  if (res_bytes == 2 && record == 2) BRT_K2_DISPATCH(int16_t, 2);
+  if (res_bytes == 4 && record == 1) BRT_K2_DISPATCH(int32_t, 1);
+  if (res_bytes == 4 && record == 2) BRT_K2_DISPATCH(int32_t, 2);
+#undef BRT_K2_DISPATCH
 #undef BRT_K2_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
-"""Carry scenes, cameras, inverse-problem parameters and recorded residuals
-across from the JAX package as plain arrays.
+"""Carry scenes, cameras, cluster plans, inverse-problem parameters and
+recorded residuals across from the JAX package as plain arrays.
 
 The two packages share no objects; what one builds reaches the other as
 numpy arrays, so tests can feed both exactly the same inputs.  Nothing here
@@ -15,6 +15,7 @@ import torch
 from bevy_raytrace_tpu_torch.core.camera import Camera
 from bevy_raytrace_tpu_torch.core.types import Scene, make_scene
 from bevy_raytrace_tpu_torch.device import resolve
+from bevy_raytrace_tpu_torch.kernels.clusters import ClusterPlan
 
 
 def scene_from_arrays(centers, radii, material_id, albedo, kind, fuzz, ior,
@@ -52,6 +53,16 @@ def scene_from_reference(scene, device=None) -> Scene:
 def camera_from_reference(camera, device=None) -> Camera:
     """A `bevy_raytrace_tpu` Camera -> the same Camera here (via pack())."""
     return Camera.from_packed(np.asarray(camera.pack()), device=device)
+
+
+def cluster_plan_from_reference(plan) -> ClusterPlan:
+    """A `bevy_raytrace_tpu.kernels.clusters.ClusterPlan` -> the same plan
+    here (its three numpy arrays copied, its two sizes)."""
+    return ClusterPlan(perm=np.array(plan.perm, np.int32),
+                       member_mask=np.array(plan.member_mask, np.float32),
+                       prio=np.array(plan.prio, np.int32),
+                       cluster_size=int(plan.cluster_size),
+                       n_clusters=int(plan.n_clusters))
 
 
 def params_from_reference(params, device=None):

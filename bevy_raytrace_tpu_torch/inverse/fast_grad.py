@@ -21,12 +21,13 @@ scatter_ok) are frozen at their sampled values; continuous quantities
 differentiate through; `edge_softness` adds the two-sided soft-silhouette
 term, which only involves the hit sphere and the recorded runner-up.
 
-Deliberate divergences from the reference: `clusters=` raises
-NotImplementedError (ROADMAP.md), and an unsupported combination of options
-raises instead of being ignored (the reference silently drops
-`forward="sweep"` when `grad_spp_chunk > 0`).  The reference's
-`_permuted_table` is `_scene_table` here: without a cluster plan there is
-no permutation.
+Deliberate divergences from the reference: an unsupported combination of
+options raises instead of being ignored (the reference silently drops
+`forward="sweep"` when `grad_spp_chunk > 0`).  With `clusters=` K2 culls
+its sphere loop but still records SCENE indices (`kernels/record.py`), so
+the replay reads the unpermuted table with or without a plan: the
+reference's `_permuted_table` is `_scene_table` here, and K3 takes no
+`sphere_perm`.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.core.geometry import sphere_table
+from bevy_raytrace_tpu_torch.kernels.clusters import check_plan
 from bevy_raytrace_tpu_torch.kernels.common import (
     _inv_sqrt_guard,
     _plain_camera,
@@ -234,6 +236,7 @@ class _Spec:
     chunk: int
     record_second: bool
     forward: str = "pallas"
+    clusters: Optional[object] = None
     pixel_base: Optional[int] = None
     num_local: Optional[int] = None
     reduce: Optional[Callable] = None
@@ -254,7 +257,8 @@ def _record(spec: _Spec, table, cam16, config: RenderConfig, frame: int,
 
     return record_frame(table, cam16, config, frame, sample_base,
                         with_residuals,
-                        spec.record_second and with_residuals, **stripe)
+                        spec.record_second and with_residuals,
+                        clusters=spec.clusters, **stripe)
 
 
 class _FastRender(torch.autograd.Function):
@@ -324,9 +328,7 @@ def _check_options(config: RenderConfig, backward: str, grad_spp_chunk: int,
             "forward='sweep' records in the unpermuted scene order: cluster "
             "plans do not apply")
     if clusters is not None:
-        raise NotImplementedError(
-            "clusters= (K2's cluster-culled broad phase) is not ported yet "
-            "(ROADMAP.md Queue 2)")
+        check_plan(clusters)
     if grad_spp_chunk:
         if forward == "sweep":
             raise ValueError(
@@ -361,11 +363,15 @@ def make_fast_renderer(config: RenderConfig, backward: str = "kernel",
     per-sphere loop on the expanded quadratic); "sweep" records with K4
     (the dense sweep on the centered quadratic, K1's; residuals in the
     unpermuted scene order).  The backward is the same either way.
-    "sweep" with `grad_spp_chunk` or with `clusters` raises ValueError;
-    `clusters` alone is not ported yet and raises NotImplementedError."""
+    "sweep" with `grad_spp_chunk` or with `clusters` raises ValueError.
+
+    `clusters`: a `kernels.clusters.ClusterPlan` of the scene's sphere count
+    makes K2 cull its sphere loop by the plan's clusters (bounds from the
+    live geometry on every render); the recorded paths, and so the
+    gradient, are those of the brute-force loop up to exact ties."""
     _check_options(config, backward, grad_spp_chunk, forward, clusters)
     spec = _Spec(config, backward, grad_spp_chunk,
-                 config.edge_softness > 0.0, forward)
+                 config.edge_softness > 0.0, forward, clusters)
 
     def render_fast(scene, camera, frame: int = 0):
         return _FastRender.apply(_scene_table(scene).contiguous(),

@@ -63,7 +63,8 @@ def make_fast_renderer_sharded(config: RenderConfig, mesh: Mesh,
         return d_tbl, d_cam
 
     spec = _Spec(config, backward, 0, config.edge_softness > 0.0, forward,
-                 pixel_base=mesh.rank * local, num_local=local, reduce=reduce)
+                 clusters, pixel_base=mesh.rank * local, num_local=local,
+                 reduce=reduce)
 
     def render_fast(scene, camera, frame: int = 0, gather: bool = False):
         stripe = _FastRender.apply(_scene_table(scene).contiguous(),

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels (sources in `csrc/`), their wrappers and their
 plain PyTorch twins: `render_lanes` (K1, the forward render), `record` (K2,
 the recording forward), `replay_grad` (K3, the replay gradient) and
-`sweep_record` (K4, the recording forward on the dense sweep); `build`
-compiles them.  Nothing is built at import time."""
+`sweep_record` (K4, the recording forward on the dense sweep); `clusters`
+plans K2's culled traversal; `build` compiles them.  Nothing is built at
+import time."""

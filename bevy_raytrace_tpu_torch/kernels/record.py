@@ -23,9 +23,23 @@ counters and pixel coordinates come from the absolute id, the image is the
 flat [num_local, 3] stripe and the residuals are [spp, max_depth,
 num_local].  Stripes compose bit for bit into the full frame.
 
-Not ported (raises, see ROADMAP.md): the cluster-culled broad phase
-(`clusters=`).  The TPU tiling options (tile_rows, unroll, skip_dead_tiles)
-do not exist here.
+Cluster-culled traversal (`clusters=`, a `kernels.clusters.ClusterPlan`; as
+`pallas_render.py:324-398`): the host gathers the sphere rows into the
+plan's Morton order and computes the clusters' bounding spheres from the
+live table on its device (`cluster_bounds`), and the kernel walks only the
+members of the clusters a ray's bound test hits.  Image and paths are those
+of the brute-force loop except where two different spheres tie exactly
+(the members are visited in Morton order).  The plain twin with `clusters=`
+is the brute-force loop over the members in Morton order, WITHOUT the bound
+test: it shares no arithmetic with the cull, so a kernel-vs-twin difference
+on the card exposes a bound that is not conservative instead of repeating
+it.  Deliberate divergences from the reference: residuals are SCENE indices
+with or without a plan (the TPU kernel records indices into its permuted
+table and hands the permutation to the replay), so the replay needs no
+plan and int16 depends on the scene's count only; any `cluster_size` >= 1
+is taken (the TPU kernel needs a multiple of its unroll); pad slots are not
+visited.  The TPU tiling options (tile_rows, unroll, skip_dead_tiles) do
+not exist here.
 """
 
 from __future__ import annotations
@@ -39,6 +53,10 @@ import torch
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.core.geometry import sphere_table
 from bevy_raytrace_tpu_torch.kernels import build
+from bevy_raytrace_tpu_torch.kernels.clusters import (
+    check_plan,
+    cluster_bounds,
+)
 from bevy_raytrace_tpu_torch.kernels.common import (
     _pcg4d,
     _plain_camera,
@@ -95,6 +113,21 @@ def _record_tables(table):
     return geom.contiguous(), attr.contiguous()
 
 
+def _members(table, clusters):
+    """The plan's real members in Morton order: int64 [S] scene indices on
+    the table's device (the plan's permutation without its pad slots)."""
+    check_plan(clusters, table.shape[0])
+    return clusters.on(table.device)[0][:table.shape[0]]
+
+
+def _scene_indices(res, members):
+    """Residuals that index the Morton-ordered rows -> scene indices."""
+    if res is None:
+        return None
+    return torch.where(res >= 0, members[res.long().clamp(min=0)],
+                       -1).to(res.dtype)
+
+
 # --- the plain twin -----------------------------------------------------
 
 
@@ -102,16 +135,27 @@ def _record_tables(table):
 def record_frame_plain(table, cam16, config: RenderConfig, frame: int = 0,
                        sample_base: int = 0, with_residuals: bool = True,
                        record_second: bool = False, pixel_base=None,
-                       num_local=None):
+                       num_local=None, clusters=None):
     """K2 in tensor ops, on any device: the same contract as `record_frame`.
 
     Vectorized over pixels in chunks that bound each [pixels, spheres]
     temporary; loops samples and bounces with alive masks, in the kernel's
     arithmetic order.  The sequential nearest-hit rule of the kernel becomes
     a first-index min over the valid roots, and its runner-up rule the
-    first-index min over the valid roots farther than the winner."""
+    first-index min over the valid roots farther than the winner.
+
+    With `clusters` the spheres are swept in the plan's Morton order (first
+    member wins a tie) with no bound test, and the recorded indices are
+    mapped back to scene indices."""
     if record_second and not with_residuals:
         raise ValueError("record_second requires with_residuals")
+    if clusters is not None:
+        members = _members(table, clusters)
+        img, res, res2 = record_frame_plain(
+            table.detach()[members], cam16, config, frame, sample_base,
+            with_residuals, record_second, pixel_base, num_local)
+        return (img, _scene_indices(res, members),
+                _scene_indices(res2, members))
     geom, attr = _record_tables(table.detach())
     cam = cam16.detach()
     base, n = _stripe(config, pixel_base, num_local)
@@ -223,8 +267,8 @@ def _k2_launcher():
     fn = lib.brt_k2_record
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)
-    fn.argtypes = [vp, vp, i32, vp, i32, i32, vp, vp, vp, i32, i32, u32, u32,
-                   i32, i32, f32, f32, i32, i32, vp]
+    fn.argtypes = [vp, vp, i32, vp, vp, i32, i32, vp, i32, i32, vp, vp, vp,
+                   i32, i32, u32, u32, i32, i32, f32, f32, i32, i32, vp]
     fn.restype = i32
     return fn
 
@@ -242,7 +286,7 @@ def _check_frame(table, cam16, config: RenderConfig, sample_base: int):
 def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
                  sample_base: int = 0, with_residuals: bool = True,
                  record_second: bool = False, pixel_base=None,
-                 num_local=None):
+                 num_local=None, clusters=None):
     """K2: render `config`'s frame, or one stripe of it, from the sphere
     table and packed camera.
 
@@ -253,11 +297,14 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     flat [num_local, 3] stripe; else the whole frame, [H, W, 3].  Returns
     (img, res, res2): res [spp, max_depth, npix] int16/int32 winner indices
     when `with_residuals` (else None), res2 the runner-ups when
-    `record_second` (else None).
+    `record_second` (else None).  `clusters` (a `ClusterPlan` of this
+    scene's sphere count) selects the cluster-culled loop; the residuals
+    are scene indices either way.
 
     CUDA tensors launch the kernel (and count one in
-    `record_frame.launches`); CPU tensors run `record_frame_plain`; any other
-    device raises."""
+    `record_frame.launches`, and in `record_frame.launches_clustered` when
+    culled); CPU tensors run `record_frame_plain`; any other device
+    raises."""
     if record_second and not with_residuals:
         raise ValueError("record_second requires with_residuals")
     table, cam16 = table.detach(), cam16.detach()
@@ -267,9 +314,18 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     if device.type == "cpu":
         return record_frame_plain(table, cam16, config, frame, sample_base,
                                   with_residuals, record_second, pixel_base,
-                                  num_local)
+                                  num_local, clusters)
     if device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA (or its twin on CPU), not {device}")
+    bounds = members = None
+    if clusters is not None:
+        # Bounds from the live table; rows gathered into Morton order so
+        # that a cluster's members are contiguous float4 loads.
+        order = _members(table, clusters)  # checks the plan
+        bounds = torch.stack(cluster_bounds(table[:, :3], table[:, 3],
+                                            clusters), dim=1).contiguous()
+        members = order.to(torch.int32)
+        table = table[order]
     geom, attr = _record_tables(table)
     spp, depth = config.samples_per_pixel, config.max_depth
     rdt = residual_dtype(table.shape[0])
@@ -282,6 +338,10 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = launch(geom.data_ptr(), attr.data_ptr(), geom.shape[0],
+                     0 if bounds is None else bounds.data_ptr(),
+                     0 if members is None else members.data_ptr(),
+                     0 if clusters is None else clusters.n_clusters,
+                     0 if clusters is None else clusters.cluster_size,
                      cam16.data_ptr(), base, n, img.data_ptr(),
                      0 if res is None else res.data_ptr(),
                      0 if res2 is None else res2.data_ptr(),
@@ -293,22 +353,17 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     if err != 0:
         raise RuntimeError(f"K2 launch failed with cudaError_t {err}")
     record_frame.launches += 1
+    record_frame.launches_clustered += int(clusters is not None)
     if num_local is None:
         img = img.reshape(config.height, config.width, 3)
     return img, res, res2
 
 
 record_frame.launches = 0
+record_frame.launches_clustered = 0
 
 
 # --- host side ----------------------------------------------------------
-
-
-def _reject_unported(clusters):
-    if clusters is not None:
-        raise NotImplementedError(
-            "clusters= is not ported yet (ROADMAP.md: the cluster broad "
-            "phase of K2 comes later)")
 
 
 def _operands(scene, camera):
@@ -324,20 +379,39 @@ def render_record(scene, camera, config: RenderConfig, frame: int = 0,
 
     The port of `render_pallas(..., with_residuals=True, record_second=...)`.
     img is [H, W, 3], or the flat [num_local, 3] stripe in stripe mode;
-    res/res2 are [spp, max_depth, npix] sphere indices (int16 when the
-    scene has at most 32,767 spheres, else int32; -1 = no hit)."""
-    _reject_unported(clusters)
+    res/res2 are [spp, max_depth, npix] scene sphere indices (int16 when the
+    scene has at most 32,767 spheres, else int32; -1 = no hit).  `clusters`:
+    a `ClusterPlan` for the culled traversal."""
     table, cam16 = _operands(scene, camera)
     return record_frame(table, cam16, config, frame, sample_base, True,
-                        record_second, pixel_base, num_local)
+                        record_second, pixel_base, num_local, clusters)
 
 
 def render_record_plain(scene, camera, config: RenderConfig, frame: int = 0,
                         sample_base: int = 0, record_second: bool = False,
                         clusters=None, pixel_base=None, num_local=None):
     """`render_record` through K2's plain twin, on any device."""
-    _reject_unported(clusters)
     table, cam16 = _operands(scene, camera)
     return record_frame_plain(table, cam16, config, frame, sample_base, True,
-                              record_second, pixel_base, num_local)
+                              record_second, pixel_base, num_local, clusters)
 
+
+def render_pallas(scene, camera, config: RenderConfig, frame: int = 0,
+                  clusters=None, with_residuals: bool = False,
+                  record_second: bool = False, sample_base: int = 0,
+                  pixel_base=None, num_local=None):
+    """The forward render on K2: the port of `render_pallas`
+    (`pallas_render.py:588`), the `pallas` backend.
+
+    Returns the image [H, W, 3] (the flat [num_local, 3] stripe in stripe
+    mode); with `with_residuals` (img, res), with `record_second` too (img,
+    res, res2), as the reference does.  `clusters`: a `ClusterPlan` for the
+    culled traversal, None for the brute-force loop.  On a CUDA scene it
+    launches K2, on a CPU scene it runs K2's plain twin."""
+    table, cam16 = _operands(scene, camera)
+    img, res, res2 = record_frame(table, cam16, config, frame, sample_base,
+                                  with_residuals, record_second, pixel_base,
+                                  num_local, clusters)
+    if not with_residuals:
+        return img
+    return (img, res, res2) if record_second else (img, res)

@@ -27,7 +27,8 @@ bounds K3, and the forward kernels side by side.
    contention.
 3. Forward kernels on the same paths: K1 (the forward render, identity
    lanes), K2 (the recorder on the expanded quadratic) and K4 (the recorder
-   on K1's dense sweep), each recorder with and without the runner-up,
+   on K1's dense sweep), each recorder with and without the runner-up, and
+   K2 with the cluster-culled traversal at cluster sizes 6, 12, 24 and 48,
    interleaved and timed with CUDA events at the gradient bench, a
    32-sample slice of the flagship (rtiow, 1200x800, depth 8) and the
    reference frame (reference_scene, 1920x1080, 64 spp, depth 3), with the
@@ -291,6 +292,7 @@ def forward_kernels(dev, reps):
     from bevy_raytrace_tpu_torch.kernels import record as k2
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
     from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
+    from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
     rtiow = (scenes.rtiow_final_scene, scenes.rtiow_final_camera)
@@ -327,6 +329,10 @@ def forward_kernels(dev, reps):
                 runs[label + "_record" + "_second" * second] = (
                     lambda fn=fn, second=second: fn(table, cam16, cfg, 1,
                                                     record_second=second))
+        for size in (6, 12, 24, 48):
+            runs[f"k2_culled_L{size}_record"] = (
+                lambda plan=cluster_scene(scene, size): k2.record_frame(
+                    table, cam16, cfg, 1, clusters=plan))
         stats = {"spheres": scene.count, "paths": cfg.rays_per_frame,
                  "rounds_per_path": float(run_k1()[1][:cfg.num_pixels].sum())
                  / cfg.rays_per_frame,
@@ -348,7 +354,7 @@ def forward_kernels(dev, reps):
         base = float(np.median(stats["ms"]["k1"]))
         for k, ms in stats["ms"].items():
             med = float(np.median(ms))
-            log(f"[forward]   {k:18s} median {med:9.3f} ms ({med / base:6.3f} "
+            log(f"[forward]   {k:22s} median {med:9.3f} ms ({med / base:6.3f} "
                 f"x k1); runs {[round(m, 3) for m in ms]}")
         out[name] = stats
     return out

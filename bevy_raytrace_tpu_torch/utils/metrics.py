@@ -2,13 +2,15 @@
 
 Mirror of `bevy_raytrace_tpu/utils/metrics.py` (`RenderMetrics`,
 `FrameTimer`).  A frame on a CUDA device is timed to its end: the timer
-synchronizes the device before it reads the clock.  A profiler context
-(`trace_profile`) is not ported yet.
+synchronizes the device before it reads the clock.  `trace_profile` is the
+profiler context, on `torch.profiler`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import List, Optional
 
@@ -78,3 +80,30 @@ class FrameTimer:
         if not self.history:
             return None
         return min(self.history, key=lambda m: m.frame_time_s)
+
+
+@contextlib.contextmanager
+def trace_profile(log_dir: str):
+    """Capture a `torch.profiler` trace of the block (CPU, and CUDA when a
+    card is present) into `log_dir/trace.json` (open with Perfetto or
+    chrome://tracing).  Yields the profiler, whose `key_averages()` give
+    per-kernel device times once the block has ended.
+
+    Usage:
+        with trace_profile("out/trace") as prof:
+            img = step(scene, camera, config, 0)
+        print(prof.key_averages().table(sort_by="cuda_time_total"))
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield prof
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

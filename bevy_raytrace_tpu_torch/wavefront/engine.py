@@ -3,7 +3,8 @@
 Mirror of `bevy_raytrace_tpu/wavefront/engine.py` for the port's
 backends.  `Renderer` auto-advances the frame counter (RNG decorrelation),
 accepts a new scene/camera every frame, and for the "cuda" backend keeps the
-cost-balanced lane permutation between frames.  The sharded backends render
+cost-balanced lane permutation between frames.  The "pallas" backend keeps
+the cluster plans of K2's culled traversal.  The sharded backends render
 this process's pixel stripe and gather the image over the mesh.
 """
 
@@ -20,6 +21,10 @@ from bevy_raytrace_tpu_torch.utils.metrics import FrameTimer, synchronize
 
 # Samples of the probe pass that measures the cost map (they count).
 PROBE_SPP = 16
+# The "pallas" backend plans clusters for scenes of at least this many
+# spheres, and keeps at most this many plans.
+MIN_CLUSTERED_SPHERES = 32
+MAX_PLANS = 8
 
 
 class Renderer:
@@ -29,16 +34,24 @@ class Renderer:
       config: render configuration.
       backend: "cuda" (the default: the K1 kernel with cost-balanced
         scheduling; needs a CUDA device and raises on any other), "torch"
-        (the wavefront, any device), "sharded" (the wavefront on this
-        rank's pixel stripe, `shard.render_sharded`) or "cuda-sharded" (K1
-        on this rank's stripe, `shard.render_mxu_sharded`: the reference's
-        "mxu-sharded").  The
+        (the wavefront, any device), "pallas" (the K2 kernel with the
+        cluster-culled traversal; on a CPU scene K2's plain twin), "sharded"
+        (the wavefront on this rank's pixel stripe, `shard.render_sharded`)
+        or "cuda-sharded" (K1 on this rank's stripe,
+        `shard.render_mxu_sharded`: the reference's "mxu-sharded").  The
         sharded backends return the gathered [H, W, 3] image on every rank.
       device: where scenes, cameras and images live; None is the default
         device (`device.default_device()`: the CUDA device, never a silent
         CPU).
       mesh: sharded backends only: the `shard.Mesh`; None is
         `shard.make_mesh()` over the initialized process group.
+      cluster_size: "pallas" backend only: spheres per cluster of the
+        culled traversal; 0 disables culling (the brute-force loop).  The
+        plan is built from the first scene of each (sphere count,
+        cluster_size), only for scenes of at least 32 spheres, and kept
+        until `replan()`; the clusters' bounds follow the live geometry on
+        every frame, so moving spheres need no new plan.  The backend
+        renders where the scene lives and never moves it.
       replan_interval: "cuda" backend only.  0 keeps the cost-map
         permutation until `replan()`; N > 0 re-probes every N frames, so the
         schedule tracks camera and scene motion.  The image never depends on
@@ -46,13 +59,17 @@ class Renderer:
     """
 
     def __init__(self, config: RenderConfig, backend: str = "cuda",
-                 device=None, replan_interval: int = 0, mesh=None):
+                 device=None, replan_interval: int = 0, mesh=None,
+                 cluster_size: int = 12):
+        if cluster_size < 0:
+            raise ValueError(f"cluster_size must be >= 0, got {cluster_size}")
         self.config = config
         self.backend = backend
         self.device = resolve(device)
         self.frame = 0
         self.ready = False
         self.replan_interval = replan_interval
+        self.cluster_size = cluster_size
         self._warmup_lock = threading.Lock()
         self._warmup_future = None
 
@@ -68,6 +85,9 @@ class Renderer:
             self._perm_pixels = None  # resolution the cached perm is for
             self._frames_on_perm = 0
             self._step = self._cuda_step
+        elif backend == "pallas":
+            self._plans = {}  # (sphere count, cluster_size) -> plan or None
+            self._step = self._pallas_step
         elif backend in ("sharded", "cuda-sharded"):
             from bevy_raytrace_tpu_torch.shard import make_mesh
             from bevy_raytrace_tpu_torch.shard.render_sharded import (
@@ -92,6 +112,24 @@ class Renderer:
         return render_mxu_sharded(scene, camera, config, self.mesh, frame,
                                   gather=True)
 
+    def _pallas_step(self, scene, camera, config, frame):
+        from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
+        from bevy_raytrace_tpu_torch.kernels.record import render_pallas
+
+        # Keyed on (count, cluster_size) only: membership is static, and a
+        # key on the scene's content would cost a device-to-host copy of
+        # every center on every frame.
+        key = (scene.count, self.cluster_size)
+        if key not in self._plans:
+            plan = (cluster_scene(scene, cluster_size=self.cluster_size)
+                    if self.cluster_size
+                    and scene.count >= MIN_CLUSTERED_SPHERES else None)
+            if len(self._plans) >= MAX_PLANS:
+                self._plans.pop(next(iter(self._plans)))
+            self._plans[key] = plan
+        return render_pallas(scene, camera, config, frame,
+                             clusters=self._plans[key])
+
     def _cuda_step(self, scene, camera, config, frame):
         from bevy_raytrace_tpu_torch.kernels.render_lanes import (
             render_mxu,
@@ -114,10 +152,15 @@ class Renderer:
         return img
 
     def replan(self):
-        """Drop the cached permutation; the next frame re-probes."""
+        """Drop cached scheduling state: the "cuda" backend's permutation
+        (the next frame re-probes) and the "pallas" backend's cluster plans
+        (the next frame plans from its scene).  Results never depend on
+        either; after large motion this restores speed."""
         if self.backend == "cuda":
             self._perm = None
             self._perm_pixels = None
+        elif self.backend == "pallas":
+            self._plans.clear()
 
     def warmup(self, scene, camera):
         """Render frame 0 once (builds the kernel on first use); returns the

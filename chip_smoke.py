@@ -6,9 +6,11 @@
 Drives the port's main paths from a checkout of this repository — the
 forward render of a frame through the K1 CUDA kernel, inverse rendering
 through the K2 (recording forward) and K3 (replay gradient) CUDA kernels,
-and the sharded gradient path (one process per device on torch.distributed)
-through K2/K4 (the dense-sweep recorder) and K3 in stripe mode — and fails
-loudly — a traceback and a nonzero exit — if any phase fails:
+the sharded gradient path (one process per device on torch.distributed)
+through K2/K4 (the dense-sweep recorder) and K3 in stripe mode, and the
+command line (`cli render | animate | serve | inverse`, in-process) with
+K2's cluster-culled traversal — and fails loudly — a traceback and a
+nonzero exit — if any phase fails:
 
   1. environment: torch/CUDA versions, the card (nvidia-smi), nvcc;
   2. build: K1 from bevy_raytrace_tpu_torch/csrc with nvcc, timed;
@@ -65,7 +67,30 @@ loudly — a traceback and a nonzero exit — if any phase fails:
      the flagship frame bit-identical to render_mxu;
      Renderer(backend="cuda-sharded") on the reference frame; the group is
      destroyed;
- 16. K4's, K2's, K3's and K1's launch counts over phase 15 must be > 0.
+ 16. K4's, K2's, K3's and K1's launch counts over phase 15 must be > 0;
+ 17. the native IO library (csrc/brt_native.cpp) built with the host's C++
+     compiler at first use; the run fails if it does not build here;
+ 18. K2's cluster-culled traversal (cluster size 12, 41 clusters on
+     rtiow_final): at the gradient bench's shape, culled against the twin
+     with the same plan (which sweeps the members with no bound test) for
+     value only, winners, and winners + runner-up, and against the
+     brute-force launch (differing pixels and residual entries, expected
+     0), timed interleaved (brute, culled, culled, brute); the same at the
+     CLI's default frame (1200x800, 64 spp, depth 8) against brute force,
+     and its 2-sample slice against the twin; clusters hit per primary ray;
+ 19. the command line at full width, each command through `cli.main([...])`
+     with the counts set to 0 before: `render --scene rtiow --backend
+     pallas` at the CLI's defaults and with `--cluster-size 0` (the two PNGs
+     compared), `render --backend cuda`, `animate --frames 4 --backend
+     cuda`, `serve` on a free port (GET /, two /frame.png with different
+     cameras, POST /quit), `inverse --backend pallas --steps 6` with a
+     checkpoint (the ball ends nearer its true center than it started);
+     every PNG decoded and held against the image the Python API gives for
+     the same arguments (at most one 8-bit step);
+ 20. Renderer(backend="pallas") over three frames of the reference frame:
+     one plan, reused; the last frame against the brute-force launch;
+ 21. K1's, K2's (with clusters and without) and K3's launch counts over
+     phases 19-20 must be > 0.
 
 Every kernel entry carries bound_ms, the least time the card could take for
 the entry's shape: the larger of the bytes the function must move (each
@@ -243,12 +268,14 @@ def gradient_phases(dev, smi):
     checks = {"k2": [], "k3": []}
 
     def k2_check(label, table, cam16, cfg, rounds, sample_base=0,
-                 with_residuals=True, record_second=False):
+                 with_residuals=True, record_second=False, clusters=None):
         """K2 vs its twin on one input: image under COMPILED, at most 2% of
         residual entries differing.  `rounds`: the executed rounds of this
-        input, for the bound.  Returns the kernel's outputs."""
+        input, for the bound (the same with or without `clusters`: the
+        bound counts a test of every sphere, whatever a kernel skips).
+        Returns the kernel's outputs."""
         kw = dict(sample_base=sample_base, with_residuals=with_residuals,
-                  record_second=record_second)
+                  record_second=record_second, clusters=clusters)
         ms, (img, res, res2) = cuda_ms(
             lambda: k2.record_frame(table, cam16, cfg, 1, **kw), 3)
         plain_ms, (pimg, pres, pres2) = cuda_ms(
@@ -428,7 +455,8 @@ def gradient_phases(dev, smi):
               "bench_rounds": bench_rounds, "sl": sl, "sl_table": sl_table,
               "sl_cam16": sl_cam16, "sl_rounds": sl_rounds, "big": big,
               "cam_big": cam_big, "flagship_grad": flagship_grad,
-              "g_full": g_full, "k3_check": k3_check, "checks": checks}
+              "g_full": g_full, "k3_check": k3_check, "k2_check": k2_check,
+              "checks": checks, "inverse_scene": rest.scene}
     return launches, stats, shared
 
 
@@ -690,6 +718,438 @@ def sharded_phases(dev, smi, shared, ref):
                       "sharded_reference_frame_ms": frame_ms}
 
 
+def png_pixels(data):
+    """PNG bytes (or a path) -> int32 [H, W, 3], decoded here: 8-bit RGB
+    with rows of filter type 0 (the Python encoder) or 1 (Sub, the native
+    one), which is all the port's encoders write."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if not isinstance(data, bytes):
+        with open(data, "rb") as f:
+            data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        (n,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            check((depth, ctype) == (8, 2), "PNG is not 8-bit RGB")
+            size = (w, h)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    ftype, rows = raw[:, 0], raw[:, 1:].reshape(h, w, 3)
+    check(bool((ftype <= 1).all()), "a PNG row filter other than None or Sub")
+    # Sub: each byte is stored minus the same channel of the pixel to its
+    # left, modulo 256; a wrapping running sum restores the row.
+    sub = np.cumsum(rows, axis=1, dtype=np.uint8)
+    return np.where((ftype == 1)[:, None, None], sub, rows).astype(np.int32)
+
+
+def cli_phases(dev, smi, shared, ref):
+    """Phases 17-21: the native IO build, K2's cluster-culled traversal, the
+    four CLI commands at full width, and Renderer(backend="pallas").
+    Returns (launch counts over the CLI path, extra stats); the culled
+    checks join `shared["checks"]["k2"]`."""
+    import contextlib
+    import io as stdio
+    import re
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from bevy_raytrace_tpu_torch import RenderConfig, cli, scenes
+    from bevy_raytrace_tpu_torch.core.camera import Camera
+    from bevy_raytrace_tpu_torch.io import native, tonemap
+    from bevy_raytrace_tpu_torch.kernels import record as k2
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
+    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
+    from bevy_raytrace_tpu_torch.kernels.clusters import (
+        cluster_bounds,
+        cluster_scene,
+    )
+    from bevy_raytrace_tpu_torch.kernels.common import _plain_camera
+    from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
+    from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render
+
+    # ---- 17. the native IO library ----------------------------------------
+    t0 = time.perf_counter()
+    lib = native.load()
+    io_build_s = time.perf_counter() - t0
+    log(f"[io] route: {native.route()}; {native.library_path().name} built "
+        f"(unless a build of this source was found) and loaded in "
+        f"{io_build_s:.2f} s")
+    check(lib is not None,
+          f"the native IO library did not build here: {native.BUILD_ERROR}")
+
+    # ---- 18. K2 culled: vs twin, vs brute force ---------------------------
+    scene, cam = shared["scene"], shared["cam"]
+    table, cam16 = shared["table"], shared["cam16"]
+    cfg, cfg0, bench = shared["cfg"], shared["cfg0"], shared["bench"]
+    plan = cluster_scene(scene, cluster_size=12)
+    check(plan.n_clusters == 41 and plan.n_members == scene.count,
+          f"the plan of rtiow_final: {plan.n_clusters} clusters")
+
+    def hits_per_primary_ray(c16, c):
+        """Mean number of clusters whose bound a camera ray hits (sample 0
+        of frame 1), by the kernel's test in tensor ops."""
+        pid = torch.arange(c.num_pixels, dtype=torch.int64, device=dev)
+        ox, oy, oz, dx, dy, dz = _plain_camera(c16, pid, 0, frame_seed(c, 1),
+                                               c.width, c.height)
+        bx, by, bz, kq = cluster_bounds(table[:, :3], table[:, 3], plan)
+        o_dot_d = ox * dx + oy * dy + oz * dz
+        o2 = ox * ox + oy * oy + oz * oz
+        hb = o_dot_d[:, None] - (bx * dx[:, None] + by * dy[:, None]
+                                 + bz * dz[:, None])
+        cq = o2[:, None] - 2.0 * (ox[:, None] * bx + oy[:, None] * by
+                                  + oz[:, None] * bz) + kq
+        return float(((torch.sqrt(hb * hb - cq) - hb) > c.t_min).sum(1)
+                     .float().mean())
+
+    def culled_vs_brute(label, tbl, c16, c, reps, sample_base=0, **kw):
+        """The culled launch against the brute-force one on the same input:
+        differing pixels and residual entries, and their times interleaved
+        (brute, culled, culled, brute)."""
+        def run(clusters):
+            return cuda_ms(lambda: k2.record_frame(
+                tbl, c16, c, 1, sample_base=sample_base, clusters=clusters,
+                **kw), reps)
+
+        b1, brute = run(None)
+        c1, culled = run(plan)
+        c2, _ = run(plan)
+        b2, _ = run(None)
+        px = int((culled[0] != brute[0]).any(-1).sum())
+        entries = [int((a != b).sum()) for a, b in zip(culled[1:], brute[1:])
+                   if a is not None]
+        out = {"brute_ms": [b1, b2], "culled_ms": [c1, c2],
+               "culled_over_brute": (c1 + c2) / (b1 + b2),
+               "differing_pixels": px, "differing_entries": entries}
+        log(f"[k2 culled] {label}: brute force {b1:.3f}, {b2:.3f} ms; culled "
+            f"{c1:.3f}, {c2:.3f} ms ({out['culled_over_brute']:.3f}x) on "
+            f"{smi}; culled vs brute force: {px} differing pixels, "
+            f"{entries} differing residual entries")
+        check(px == 0 and not any(entries),
+              f"K2 culled differs from brute force at {label}: {out}")
+        return out
+
+    k2_checks = shared["checks"]["k2"]
+    first_culled = len(k2_checks)
+    culled_stats = {"clusters_hit_per_primary_ray": {
+        "grad_bench": hits_per_primary_ray(cam16, cfg)}}
+    for label, c, kw in (
+            ("record_second", cfg, dict(record_second=True)),
+            ("record", cfg0, {}),
+            ("value only", cfg0, dict(with_residuals=False))):
+        full = f"{bench} culled L=12 {label}"
+        shared["k2_check"](full, table, cam16, c, shared["bench_rounds"],
+                           clusters=plan, **kw)
+        k2_checks[-1].update(culled_vs_brute(full, table, cam16, c, 3, **kw))
+    sl = shared["sl"]
+    label = "rtiow 1200x800 samples 128-129 depth 8 culled L=12"
+    shared["k2_check"](f"{label} record", shared["sl_table"],
+                       shared["sl_cam16"], sl, shared["sl_rounds"], 128,
+                       clusters=plan)
+    k2_checks[-1].update(culled_vs_brute(
+        f"{label} record", shared["sl_table"], shared["sl_cam16"], sl, 3,
+        sample_base=128))
+    shared["k2_check"](f"{label} value only", shared["sl_table"],
+                       shared["sl_cam16"], sl, shared["sl_rounds"], 128,
+                       with_residuals=False, clusters=plan)
+    frame_cfg = RenderConfig(width=1200, height=800, samples_per_pixel=64,
+                             max_depth=8, spp_chunk=4)
+    culled_stats["clusters_hit_per_primary_ray"]["cli_frame"] = (
+        hits_per_primary_ray(shared["sl_cam16"], frame_cfg))
+    culled_stats["cli_frame_value_only"] = culled_vs_brute(
+        "rtiow 1200x800x64 depth 8 (the CLI's frame) value only",
+        shared["sl_table"], shared["sl_cam16"], frame_cfg, 1,
+        with_residuals=False)
+    log(f"[k2 culled] clusters hit per primary ray (of {plan.n_clusters}): "
+        f"{culled_stats['clusters_hit_per_primary_ray']}")
+
+    # ---- 19. the command line at full width -------------------------------
+    # Every leg of the path is counted on its own: the counts are set to 0
+    # just before it and read just after, and must be exactly the leg's
+    # own.  The images the legs are held against are rendered between the
+    # legs, outside every counted window.
+    wrappers = {"k1": k1.render_lanes, "k2": k2.record_frame,
+                "k3": k3.replay_grad, "k4": k4.sweep_record_frame}
+    launches = dict.fromkeys([*wrappers, "k2_clustered"], 0)
+    legs = {}
+
+    def counted(leg, fn, **want):
+        """fn() with every count at 0 before and read after -> its result.
+        The leg must launch exactly `want` (kernels not named: none)."""
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        k2.record_frame.launches_clustered = 0
+        out = fn()
+        got = {k: w.launches for k, w in wrappers.items()}
+        got["k2_clustered"] = k2.record_frame.launches_clustered
+        legs[leg] = {k: v for k, v in got.items() if v}
+        log(f"[launches] {leg}: {legs[leg]}")
+        check(got == {**dict.fromkeys(got, 0), **want},
+              f"{leg} launched {got}, expected exactly {want}")
+        for k, v in got.items():
+            launches[k] += v
+        return out
+
+    def run_cli(argv, **want):
+        """cli.main(argv) in this process, launching exactly `want` ->
+        (wall seconds, its stderr)."""
+        err = stdio.StringIO()
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                cli.main(argv)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        secs = counted("cli " + " ".join(
+            a for a in argv if a != "-o" and not a.startswith(tmp)), run,
+            **want)
+        for line in err.getvalue().splitlines():
+            log(f"[cli] {argv[0]}: {line}")
+        return secs, err.getvalue()
+
+    def held(name, got, want):
+        """A decoded PNG against the API's image, tone-mapped: at most one
+        8-bit step anywhere (the CLI tone-maps on the device)."""
+        want = tonemap(want).astype(np.int32)
+        check(got.shape == want.shape, f"{name}: shape {got.shape}")
+        worst = int(np.abs(got - want).max())
+        log(f"[cli] {name}: PNG vs the API image: max 8-bit difference "
+            f"{worst}, {float((got != want).mean()):.5%} of values differ")
+        check(worst <= 1, f"{name}: PNG differs from the API image by {worst}")
+
+    def timed(text, pattern=r"in (\d+\.\d+)s"):
+        m = re.search(pattern, text)
+        check(m is not None, f"no time in the CLI's report: {text!r}")
+        return float(m.group(1))
+
+    cli_stats = {}
+    cam_frame = scenes.rtiow_final_camera(frame_cfg.aspect)
+    with tempfile.TemporaryDirectory() as tmp:
+        # render --backend pallas: the defaults, then brute force.
+        p12, p0 = os.path.join(tmp, "pallas.png"), os.path.join(tmp, "p0.png")
+        wall, err = run_cli(["render", "--scene", "rtiow", "--backend",
+                             "pallas", "-o", p12], k2=1, k2_clustered=1)
+        cli_stats["render_pallas"] = {
+            "wall_s": wall, "timed_s": timed(err),
+            "rays_per_s": frame_cfg.rays_per_frame / timed(err)}
+        wall, err = run_cli(["render", "--scene", "rtiow", "--backend",
+                             "pallas", "--cluster-size", "0", "-o", p0],
+                            k2=1)
+        cli_stats["render_pallas_brute"] = {
+            "wall_s": wall, "timed_s": timed(err),
+            "rays_per_s": frame_cfg.rays_per_frame / timed(err)}
+        with open(p12, "rb") as fa, open(p0, "rb") as fb:
+            same = fa.read() == fb.read()
+        got12 = png_pixels(p12)
+        diff = int((got12 != png_pixels(p0)).any(-1).sum())
+        log(f"[cli] render --backend pallas: cluster size 12 vs 0: PNG bytes "
+            f"{'equal' if same else 'differ'}, {diff} differing pixels")
+        check(diff == 0, "the culled and brute-force CLI renders differ")
+        held("render --backend pallas", got12, k2.render_pallas(
+            scene, cam_frame, frame_cfg, 0, clusters=plan))
+
+        # render --backend cuda.
+        pc = os.path.join(tmp, "cuda.png")
+        # The session's first frame is two launches: the probe samples,
+        # then the rest on the balanced permutation.
+        wall, err = run_cli(["render", "--scene", "rtiow", "--backend",
+                             "cuda", "-o", pc], k1=2)
+        cli_stats["render_cuda"] = {
+            "wall_s": wall, "timed_s": timed(err),
+            "rays_per_s": frame_cfg.rays_per_frame / timed(err)}
+        held("render --backend cuda", png_pixels(pc),
+             k1.render_mxu(scene, cam_frame, frame_cfg, 0))
+
+        # animate --frames 4 --backend cuda.
+        seq = os.path.join(tmp, "seq")
+        wall, err = run_cli(["animate", "--frames", "4", "--backend", "cuda",
+                             "-o", seq], k1=5)
+        check(sorted(os.listdir(seq)) == [f"frame_{i:04d}.png"
+                                          for i in range(4)],
+              f"animate wrote {sorted(os.listdir(seq))}")
+        per_frame = timed(err, r"then (\d+\.\d+)s/frame")
+        cli_stats["animate_cuda"] = {
+            "wall_s": wall, "first_frame_s": timed(err, r"frame (\d+\.\d+)s"),
+            "s_per_frame": per_frame,
+            "rays_per_s": frame_cfg.rays_per_frame / per_frame}
+        ang = 2.0 * np.pi * 2 / 4
+        orbit = Camera.look_at(
+            lookfrom=(13.0 * np.cos(ang), 2.0, 13.0 * np.sin(ang)),
+            lookat=(0.0, 0.0, 0.0), vfov_deg=20.0, aspect=frame_cfg.aspect,
+            aperture=0.1, focus_dist=10.0)
+        held("animate frame 2", png_pixels(os.path.join(seq,
+                                                         "frame_0002.png")),
+             k1.render_mxu(scene, orbit, frame_cfg, 2))
+
+        # serve: a server that answers a few requests.
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        serve_err = stdio.StringIO()
+
+        def serve():
+            with contextlib.redirect_stdout(stdio.StringIO()):
+                cli.main(["serve", "--port", str(port)])
+
+        def session():
+            """The server's life, from its start to its /quit ->
+            (the thread, the two frames, their request seconds, /quit's
+            answer)."""
+            server = threading.Thread(target=serve, daemon=True)
+            server.start()
+            base = f"http://127.0.0.1:{port}"
+            page = None
+            for _ in range(600):
+                try:
+                    page = urllib.request.urlopen(f"{base}/", timeout=30).read()
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            check(page is not None and b"frame.png" in page,
+                  "serve: the page did not come up")
+            frames, frame_s = [], []
+            for query in ("yaw=0.2&pitch=0.1&dist=13",
+                          "yaw=1.2&pitch=0.1&dist=9"):
+                t0 = time.perf_counter()
+                frames.append(urllib.request.urlopen(
+                    f"{base}/frame.png?{query}", timeout=600).read())
+                frame_s.append(time.perf_counter() - t0)
+            bye = urllib.request.urlopen(urllib.request.Request(
+                f"{base}/quit", method="POST"), timeout=60).read()
+            server.join(timeout=60)
+            return server, frames, frame_s, bye
+
+        # The server's stderr lines are read back below, so the whole
+        # process's stderr is captured while it runs.  Its session's first
+        # frame is two launches (the probe, then the rest), the second one.
+        with contextlib.redirect_stderr(serve_err):
+            server, frames, frame_s, bye = counted("cli serve", session, k1=3)
+        for line in serve_err.getvalue().splitlines():
+            log(f"[cli] serve: {line}")
+        check(bye == b"bye" and not server.is_alive(),
+              "serve did not shut down on /quit")
+        shots = [png_pixels(f) for f in frames]
+        check(all(s.shape == (800, 1200, 3) for s in shots)
+              and frames[0] != frames[1], "serve: frames invalid or equal")
+        render_ms = [float(v) for v in re.findall(
+            r"rendered in (\d+\.\d+) ms", serve_err.getvalue())]
+        encode_ms = [float(v) for v in re.findall(
+            r"encoded in (\d+\.\d+) ms", serve_err.getvalue())]
+        cli_stats["serve_cuda"] = {"request_s": frame_s,
+                                   "render_ms": render_ms,
+                                   "encode_ms": encode_ms}
+        view = Camera.look_at(
+            lookfrom=(13 * np.cos(0.1) * np.cos(0.2), 13 * np.sin(0.1) + 2.0,
+                      13 * np.cos(0.1) * np.sin(0.2)),
+            lookat=(0.0, 0.0, 0.0), vfov_deg=20.0, aspect=frame_cfg.aspect,
+            aperture=0.0, focus_dist=13.0)
+        held("serve frame 0", shots[0],
+             k1.render_mxu(scene, view, frame_cfg, 0))
+
+        # inverse --backend pallas --steps 6 with a checkpoint.
+        pi, ck = os.path.join(tmp, "inv.png"), os.path.join(tmp, "inv.npz")
+        # The loss renders two independent sample sets per step, each one
+        # K2 recording and, backward, one K3 replay.
+        wall, err = run_cli(["inverse", "--backend", "pallas", "--steps", "6",
+                             "--checkpoint", ck, "--checkpoint-every", "3",
+                             "-o", pi], k2=12, k3=12)
+        with np.load(ck) as z:
+            step, center = int(z["step"]), z["param.centers"][1]
+        true = scenes.baseline_config1_scene()[0].centers[1].cpu().numpy()
+        start = float(np.linalg.norm(np.float32([0.25, -0.1, 0.1])))
+        dist = float(np.linalg.norm(center - true))
+        cli_stats["inverse_pallas"] = {
+            "wall_s": wall, "s_per_step": timed(err, r"in (\d+\.\d+)s") / 6,
+            "center_error": [start, dist]}
+        log(f"[cli] inverse: checkpoint at step {step}; the ball's center "
+            f"error {start:.4f} -> {dist:.4f}")
+        check(step == 6 and dist < start, "cli inverse did not improve")
+        inv_cfg = RenderConfig(width=1200, height=800, samples_per_pixel=64,
+                               max_depth=8, spp_chunk=4)
+        with torch.no_grad():
+            want = render(shared["inverse_scene"],
+                          scenes.baseline_config1_camera(inv_cfg.aspect),
+                          inv_cfg, 0)
+        got, want8 = png_pixels(pi), tonemap(want).astype(np.int32)
+        close = float((np.abs(got - want8).max(-1) <= 1).mean())
+        log(f"[cli] inverse: PNG vs the API's 6-step result: {close:.4%} of "
+            f"pixels within one 8-bit step")
+        check(close >= 0.98, "cli inverse's image differs from the API's")
+
+    # ---- 20. Renderer(backend="pallas") -----------------------------------
+    ref_scene, ref_cam, ref_cfg = ref
+    r = Renderer(ref_cfg, backend="pallas")
+    frame_ms, plans = [], []
+
+    def session_frames():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = r.render_frame(ref_scene, ref_cam)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            plans.append(r._plans[(ref_scene.count, 12)])
+        return img
+
+    img = counted('Renderer(backend="pallas") x 3 frames', session_frames,
+                  k2=3, k2_clustered=3)
+    check(len(r._plans) == 1 and plans[0] is not None
+          and all(p is plans[0] for p in plans),
+          "Renderer('pallas') did not reuse its plan")
+    brute = k2.render_pallas(ref_scene, ref_cam, ref_cfg, 2)
+    diff = int((img != brute).any(-1).sum())
+    log('[pallas session] Renderer(backend="pallas") reference frames '
+        f"({ref_scene.count} spheres, {plans[0].n_clusters} clusters): "
+        + ", ".join(f"{m:.2f} ms" for m in frame_ms)
+        + f"; one plan for 3 frames; last frame vs brute force: {diff} "
+        f"differing pixels; on {smi}")
+    check(diff == 0 and bool(torch.isfinite(img).all()),
+          "Renderer('pallas') differs from the brute-force launch")
+
+    # The session's own shape and plan against the twin: a 2-sample slice
+    # of the reference frame, value only as the session launches it.
+    ref_sl = RenderConfig(width=ref_cfg.width, height=ref_cfg.height,
+                          samples_per_pixel=2, max_depth=ref_cfg.max_depth)
+    ref_table, ref_cam16 = k2._operands(ref_scene, ref_cam)
+    shared["k2_check"](
+        f"reference frame 1920x1080 samples 0-1 depth 3 culled L=12 "
+        f"({plans[0].n_clusters} clusters) value only", ref_table, ref_cam16,
+        ref_sl, k1_rounds(ref_scene, ref_cam, ref_sl, 1),
+        with_residuals=False, clusters=plans[0])
+
+    # ---- 21. launches -----------------------------------------------------
+    # The sums of the legs' counts, each of which was held to its exact
+    # number above.
+    log(f"[launches] over the CLI path (phases 19-20): {launches}")
+    check(launches["k1"] > 0 and launches["k3"] > 0
+          and launches["k2_clustered"] > 0
+          and launches["k2"] > launches["k2_clustered"],
+          f"a kernel was not launched by the CLI path: {launches}")
+    for c in k2_checks[first_culled:]:
+        c["launches_cli_path"] = launches["k2_clustered"]
+    return launches, {"io_route": native.route(), "io_build_s": io_build_s,
+                      "k2_culled": culled_stats, "cli": cli_stats,
+                      "cli_leg_launches": legs,
+                      "pallas_session_frame_ms": frame_ms}
+
+
 def main() -> int:
     import torch
 
@@ -852,6 +1312,8 @@ def main() -> int:
     grad_launches, grad_stats, shared = gradient_phases(dev, smi)
     shard_launches, shard_stats = sharded_phases(
         dev, smi, shared, (ref_scene, ref_cam, ref_cfg))
+    cli_launches, cli_stats = cli_phases(dev, smi, shared,
+                                         (ref_scene, ref_cam, ref_cfg))
     checks = shared["checks"]
     csrc = "bevy_raytrace_tpu_torch/csrc/"
     entries = [
@@ -870,11 +1332,13 @@ def main() -> int:
     ]
     for entry, key in zip(entries, ("k1", "k2", "k3", "k4")):
         entry["launches_sharded_path"] = shard_launches[key]
+        entry["launches_cli_path"] = cli_launches[key]
+    entries[1]["launches_cli_path_clustered"] = cli_launches["k2_clustered"]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"build_s": build_s, "verify_ms": verify_times,
                     "reference_frame_ms": frame_ms,
                     "flagship_s": flag_s, "flagship_rays_per_s": flag_rps,
-                    **grad_stats, **shard_stats}))
+                    **grad_stats, **shard_stats, **cli_stats}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

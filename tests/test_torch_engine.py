@@ -54,3 +54,71 @@ def test_cuda_backend_needs_a_cuda_device():
         Renderer(CFG, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         Renderer(CFG, backend="mxu")
+
+
+def test_pallas_backend_plans_by_count_and_cluster_size():
+    """Renderer(backend="pallas"): the cluster plan is built from the first
+    scene of each (sphere count, cluster_size), only for scenes of at least
+    32 spheres, kept across frames and moved spheres, dropped by
+    replan(); every frame is K2's (its twin's, on the CPU) image."""
+    import dataclasses
+
+    from bevy_raytrace_tpu_torch.kernels.record import render_pallas
+
+    big, _ = tsc.rtiow_final_scene(seed=3, grid=3)  # 37 spheres
+    cam = tsc.rtiow_final_camera(CFG.aspect)
+    assert big.count >= 32
+    r = Renderer(CFG, backend="pallas", device="cpu", cluster_size=6)
+    f0 = r.render_frame(big, cam)
+    plan = r._plans[(big.count, 6)]
+    assert plan is not None and plan.cluster_size == 6
+    moved = dataclasses.replace(big, centers=big.centers + 0.25)
+    f1 = r.render_frame(moved, cam)
+    assert r._plans[(big.count, 6)] is plan and len(r._plans) == 1
+    np.testing.assert_array_equal(
+        f0.numpy(), render_pallas(big, cam, CFG, 0).numpy())
+    np.testing.assert_array_equal(
+        f1.numpy(), render_pallas(moved, cam, CFG, 1).numpy())
+    assert r.frame == 2
+
+    small, small_cam = _scene()  # 5 spheres: below the threshold, no plan
+    r.render_frame(small, small_cam)
+    assert r._plans[(small.count, 6)] is None and len(r._plans) == 2
+    r.cluster_size = 12  # another key: a second plan for the same count
+    r.render_frame(big, cam)
+    assert r._plans[(big.count, 12)].cluster_size == 12 and len(r._plans) == 3
+    r.replan()
+    assert r._plans == {}
+    r.render_frame(big, cam)
+    assert r._plans[(big.count, 12)] is not plan
+
+    off = Renderer(CFG, backend="pallas", device="cpu", cluster_size=0)
+    off.render_frame(big, cam)
+    assert off._plans == {(big.count, 0): None}
+    with pytest.raises(ValueError, match="cluster_size"):
+        Renderer(CFG, backend="pallas", device="cpu", cluster_size=-1)
+
+
+def test_pallas_backend_keeps_a_bounded_plan_cache():
+    from bevy_raytrace_tpu_torch.wavefront.engine import MAX_PLANS
+
+    scene, cam = _scene()
+    r = Renderer(CFG, backend="pallas", device="cpu")
+    for size in range(1, MAX_PLANS + 3):
+        r.cluster_size = size
+        r.render_frame(scene, cam)
+    assert len(r._plans) == MAX_PLANS
+    assert (scene.count, 1) not in r._plans  # the oldest went first
+
+
+def test_trace_profile_writes_a_trace(tmp_path):
+    import json
+
+    from bevy_raytrace_tpu_torch.utils.metrics import trace_profile
+
+    scene, cam = _scene()
+    with trace_profile(str(tmp_path / "trace")) as prof:
+        render(scene, cam, CFG, 0)
+    with open(tmp_path / "trace" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+    assert len(prof.key_averages()) > 0

@@ -229,7 +229,7 @@ BAD = {
                          "chunked"),
     "sweep with clusters": (dict(forward="sweep", clusters=object()),
                             ValueError, "unpermuted"),
-    "clusters": (dict(clusters=object()), NotImplementedError, "clusters"),
+    "clusters": (dict(clusters=object()), TypeError, "ClusterPlan"),
     "chunk with torch": (dict(backward="torch", grad_spp_chunk=1), ValueError,
                          "kernel"),
     "chunk not dividing": (dict(grad_spp_chunk=3), ValueError, "divisible"),

@@ -22,7 +22,9 @@ def test_import_does_not_load_jax():
         "    importlib.import_module(m.name)\n"
         "    seen.add(m.name[len(p.__name__) + 1:])\n"
         "new = {'shard.mesh', 'shard.render_sharded', 'shard.worker',\n"
-        "       'kernels.sweep_record', 'inverse.shard_grad', 'device'}\n"
+        "       'kernels.sweep_record', 'inverse.shard_grad', 'device',\n"
+        "       'cli', 'io', 'io.native', 'io.image', 'io.writer',\n"
+        "       'kernels.clusters'}\n"
         "assert new <= seen, new - seen\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith("
         "('jax.', 'bevy_raytrace_tpu.')) or k == 'bevy_raytrace_tpu')\n"
@@ -44,6 +46,27 @@ def test_no_module_imports_jax():
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"shard/mesh.py", "shard/render_sharded.py", "shard/worker.py",
             "kernels/sweep_record.py", "inverse/shard_grad.py",
-            "device.py"} <= names
+            "device.py", "cli.py", "io/__init__.py", "io/native.py",
+            "io/image.py", "io/writer.py", "kernels/clusters.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on a machine without JAX."""
+    text = (PKG.parent / "chip_smoke.py").read_text()
+    pattern = re.compile(r"^\s*(import jax|from jax\b|import bevy_raytrace_tpu\b"
+                         r"(?!_torch)|from bevy_raytrace_tpu\b(?!_torch))",
+                         re.M)
+    assert not pattern.search(text)
+
+
+def test_cli_help_needs_no_device():
+    """`python -m bevy_raytrace_tpu_torch.cli --help` prints the four
+    commands on any machine."""
+    out = subprocess.run(
+        [sys.executable, "-m", "bevy_raytrace_tpu_torch.cli", "--help"],
+        cwd=PKG.parent, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for cmd in ("render", "animate", "serve", "inverse"):
+        assert cmd in out.stdout

@@ -31,6 +31,7 @@ from bevy_raytrace_tpu_torch.interop import (
 )
 from bevy_raytrace_tpu_torch.inverse import replay_image
 from bevy_raytrace_tpu_torch.kernels import record as k2
+from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
 from bevy_raytrace_tpu_torch.parity import INTERPRET, compare
 
 torch.set_num_threads(2)
@@ -147,8 +148,14 @@ def test_recorder_rejects_what_it_does_not_take():
     scene, _ = tsc.baseline_config1_scene()
     cam = tsc.baseline_config1_camera(cfg.aspect)
     for render in (k2.render_record, k2.render_record_plain):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="ClusterPlan"):
             render(scene, cam, cfg, clusters=object())
+        # A real plan (one cluster per sphere) records what no plan does.
+        plan = cluster_scene(scene, cluster_size=1)
+        for a, b in zip(render(scene, cam, cfg, record_second=True),
+                        render(scene, cam, cfg, record_second=True,
+                               clusters=plan)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
         # Stripe mode takes pixel_base with num_local, inside the frame.
         with pytest.raises(ValueError, match="num_local"):
             render(scene, cam, cfg, pixel_base=0)

@@ -181,9 +181,33 @@ def test_indivisible_shapes_raise():
             call()
     with pytest.raises(ValueError, match="not divisible by 2 hosts"):
         make_mesh(hosts=2)
-    with pytest.raises(NotImplementedError, match="clusters"):
+    with pytest.raises(TypeError, match="ClusterPlan"):
         make_fast_renderer_sharded(RenderConfig(**KW), make_mesh(),
                                    clusters=object())
+
+
+def test_sharded_fast_gradient_takes_a_cluster_plan():
+    """make_fast_renderer_sharded(clusters=plan) passes the plan to K2 on
+    the rank's stripe: the image and the gradient of the renderer without
+    a plan (the same recorded paths)."""
+    from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
+
+    cfg = RenderConfig(**{**KW, "edge_softness": 0.01})
+    scene, _ = tsc.rtiow_final_scene(seed=3, grid=2)
+    cam = tsc.rtiow_final_camera(cfg.aspect)
+    w = np.random.default_rng(6).standard_normal(
+        (cfg.height, cfg.width, 3)).astype(np.float32)
+    plan = cluster_scene(scene, cluster_size=6)
+    out = []
+    for clusters in (plan, None):
+        fast = make_fast_renderer_sharded(cfg, make_mesh(), clusters=clusters)
+        c = scene.centers.clone().requires_grad_(True)
+        img = fast(dataclasses.replace(scene, centers=c), cam, 1, gather=True)
+        torch.sum(img * torch.from_numpy(w)).backward()
+        out.append((img.detach(), c.grad))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=0, atol=0)
+    assert float(out[1][1].abs().max()) > 0.0
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=0, atol=0)
 
 
 def test_fast_gradient_matches_jax_sharded_on_virtual_devices():
