@@ -178,4 +178,42 @@ __device__ __forceinline__ bool scatter(const float d[3], const float n[3],
   return !is_metal(kind) || (out[0] * n[0] + out[1] * n[1] + out[2] * n[2]) > 0.f;
 }
 
+// The dense sweep of K1 and of the rate probe V3: the nearest valid hit of
+// the ray (o, d) over n spheres, table[i * STRIDE] = (cx, cy, cz, r^2).  The
+// centered half-b quadratic; the root only where the discriminant is
+// positive, as disc * rsqrtf(disc) (so an exact tangency, disc == 0, is a
+// miss); the near root when > t_min, else the far one; valid = t > t_min with
+// no t_max test; the first index wins a tie.  Leaves (best_t, best), best = -1
+// on a miss.  The pair is updated in two nested `if`s, not one joint
+// condition: see k1_render.cu.  SMEM: the table lies in shared memory and is
+// read with plain loads instead of __ldg.  K4 keeps its own copy of this
+// loop with the runner-up rule inside (k4_sweep_record.cu): called from
+// there, this function with a runner-up switch recorded bit-identical
+// residuals but took 6-7% longer at 400x300x16 (PERF.md).
+template <int STRIDE, bool SMEM>
+__device__ __forceinline__ void sweep_nearest(
+    const float4* __restrict__ table, int n, const float (&o)[3],
+    const float (&d)[3], float t_min, float& best_t, int& best) {
+  best_t = 0.f;
+  best = -1;
+  for (int i = 0; i < n; ++i) {
+    const float4 g = SMEM ? table[i * STRIDE] : __ldg(table + i * STRIDE);
+    const float ocx = o[0] - g.x, ocy = o[1] - g.y, ocz = o[2] - g.z;
+    const float hb = ocx * d[0] + ocy * d[1] + ocz * d[2];
+    const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - g.w;
+    const float disc = hb * hb - cq;
+    if (disc > 0.f) {
+      const float sq = disc * rsqrtf(disc);
+      const float rn = -hb - sq;
+      const float tn = rn > t_min ? rn : sq - hb;
+      if (tn > t_min) {
+        if (best < 0 || tn < best_t) {
+          best_t = tn;
+          best = i;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace brt

@@ -9,9 +9,10 @@
 //     is PCG4D(pixel, sample_base + s, stream, seed);
 //   * for each sample: a thin-lens camera ray keyed on CAMERA_STREAM, then
 //     up to max_depth rounds of (dense sweep over every sphere -> shade);
-//   * the sweep uses the centered half-b quadratic with near/far root choice
-//     and valid = t > t_min (no t_max test).  The nearest hit keeps a
-//     (best_t, best_idx) register pair updated with a strict < in ascending
+//   * the sweep (brt::sweep_nearest in common.cuh, which the rate probe V3
+//     calls too) uses the centered half-b quadratic with near/far
+//     root choice and valid = t > t_min (no t_max test).  The nearest hit
+//     keeps a (best_t, best_idx) register pair, strict < in ascending
 //     index order: the reference's first-wins tie rule, with no cap on the
 //     sphere count.  The winner's t is then recomputed with an exact sqrt;
 //   * Lambertian, metal (fuzz + below-horizon absorb) and dielectric (TIR +
@@ -42,7 +43,7 @@
 // fma, which flips rare borderline discrete choices against the PyTorch twin;
 // the bench's compiled-parity thresholds absorb that.
 //
-// The update of (best_t, best) is written as two nested `if`s on purpose:
+// The sweep's update of (best_t, best) is two nested `if`s on purpose:
 // written as one joint condition the same sweep runs 1.6x slower on the card
 // with bit-identical output (a code-generation effect of nvcc 12; the two
 // forms were built from one source and timed interleaved, PERF.md).
@@ -91,26 +92,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int bounce = 0; bounce < max_depth; ++bounce) {
       rounds += 1.0f;
       // ---- dense sweep: nearest hit, first index wins ties ----------------
-      float best_t = 0.f;
-      int best = -1;
-      for (int i = 0; i < n_spheres; ++i) {
-        const float4 g = __ldg(geom + i);
-        const float ocx = o[0] - g.x, ocy = o[1] - g.y, ocz = o[2] - g.z;
-        const float hb = ocx * d[0] + ocy * d[1] + ocz * d[2];
-        const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - g.w;
-        const float disc = hb * hb - cq;
-        if (disc > 0.f) {
-          const float sq = disc * rsqrtf(disc);
-          const float rn = -hb - sq;
-          const float tn = rn > t_min ? rn : sq - hb;
-          if (tn > t_min) {
-            if (best < 0 || tn < best_t) {
-              best_t = tn;
-              best = i;
-            }
-          }
-        }
-      }
+      float best_t;
+      int best;
+      brt::sweep_nearest<1, false>(geom, n_spheres, o, d, t_min, best_t, best);
       if (best < 0) {  // miss: sky, and the path ends
         float sk_r, sk_g;
         brt::sky(d[1], sk_r, sk_g);

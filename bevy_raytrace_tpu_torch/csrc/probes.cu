@@ -1,0 +1,252 @@
+// P1-P5 on Hopper: the five construct probes of tools/proto_mxu.py.
+//
+// The TPU tool asks five yes/no questions of its compiler before a render
+// kernel is designed around the answers: does a loop with a block-wide exit
+// condition and per-lane carries compile (P1), an in-kernel float32 product
+// (P2), a relayout round trip (P3), a column minimum with its row index (P4),
+// an equality one-hot gather (P5).  These are the same five functions written
+// as plain SIMT for sm_90a, each small enough to read at a glance; the answers
+// they give for this card stand in PERF.md beside their times.
+//
+//   P1  replaces p1_while_vreg_carry (tools/proto_mxu.py:24)
+//   P2  replaces p2_dot              (tools/proto_mxu.py:55)
+//   P3  replaces p3_reshape          (tools/proto_mxu.py:74)
+//   P4  replaces p4_min_packed       (tools/proto_mxu.py:90)
+//   P5  replaces p5_onehot_gather    (tools/proto_mxu.py:116)
+//
+// What bounds them on an H100: bytes, all five (the largest, P2, writes 4 MB;
+// P4 and P5 read 2 MB).  At these shapes (1,024 lanes or columns: 8 blocks of
+// 128 threads on a card of 132 SMs) none comes near that bound: each is a few
+// microseconds of latency, and a launch costs about as much.  They are probes
+// of constructs, not of rates; the rate probes are in fp32_probe.cu.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
+// --use_fast_math, --fmad at its default (a*b+c contracts to fma).
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+// ---- P1 ---------------------------------------------------------------------
+// One block, one thread per lane.  The loop runs while ANY lane is alive:
+// __syncthreads_or is both the block-wide vote and the barrier, so every
+// thread reaches it in every round, dead or not.  As in the TPU kernel a dead
+// lane's carries a and b go on updating until the last lane has died; only
+// `alive` is sticky.  K1 (k1_render.cu) replaced this block-wide loop by a
+// per-thread `break`; P1 measures the alternative it did not take.
+constexpr int kP1Lanes = 1024;
+
+__global__ void __launch_bounds__(kP1Lanes)
+    p1_while_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    int* __restrict__ rounds_out) {
+  const int lane = threadIdx.x;
+  float a = x[lane];
+  float b = a * 2.0f;
+  int alive = 1;
+  int rounds = 0;
+  while (__syncthreads_or(alive)) {
+    a = a + 1.0f;
+    b = b * 1.01f + a * 0.001f;
+    alive = alive && (a < 50.0f);
+    ++rounds;
+  }
+  out[lane] = b + static_cast<float>(rounds);
+  if (lane == 0) *rounds_out = rounds;
+}
+
+// ---- P2 ---------------------------------------------------------------------
+// c[M, N] = a[M, K] @ b[K, N] in float32: a block computes a 64 x 64 tile of
+// c from shared-memory tiles of a and b, 16 of K at a time, each thread a 4 x
+// 4 patch with plain fmaf (wgmma has no float32 input type, only TF32).  A
+// thread's four columns are 16 apart, so a half-warp's stores cover 64
+// consecutive bytes.  With K = 16 the product writes 64 times the bytes it
+// reads: the stores bound it.
+constexpr int kP2Tile = 64;
+constexpr int kP2K = 16;
+
+__global__ void __launch_bounds__(256)
+    p2_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ c, int m, int n, int k) {
+  __shared__ float as[kP2K][kP2Tile + 1];  // as[kk][row], padded
+  __shared__ float bs[kP2K][kP2Tile];      // bs[kk][col]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.y * kP2Tile, col0 = blockIdx.x * kP2Tile;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < k; k0 += kP2K) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + i * 256;
+      as[e % kP2K][e / kP2K] =
+          a[static_cast<size_t>(row0 + e / kP2K) * k + k0 + e % kP2K];
+      bs[e / kP2Tile][e % kP2Tile] =
+          b[static_cast<size_t>(k0 + e / kP2Tile) * n + col0 + e % kP2Tile];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kP2K; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = as[kk][ty * 4 + i];
+        bv[i] = bs[kk][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      c[static_cast<size_t>(row0 + ty * 4 + i) * n + col0 + tx + 16 * j] =
+          acc[i][j];
+}
+
+// ---- P3 ---------------------------------------------------------------------
+// [rows, 128] -> [1, rows * 128], times 2, and back.  A row-major reshape
+// moves nothing on a GPU, so the round trip is one elementwise pass that reads
+// through the [rows, 128] index map and writes through the flat one and back.
+__global__ void __launch_bounds__(128)
+    p3_reshape_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      int rows) {
+  const int flat = blockIdx.x * blockDim.x + threadIdx.x;  // index in [1, n]
+  if (flat >= rows * 128) return;
+  const int r = flat / 128, c = flat % 128;  // index in [rows, 128]
+  out[r * 128 + c] = x[r * 128 + c] * 2.0f;
+}
+
+// ---- P4 ---------------------------------------------------------------------
+// Per column of t [S, R]: the minimum and the row it stands in.  A thread per
+// column walks the rows (neighbouring threads read neighbouring addresses) and
+// keeps a (t, row) register pair; strict <, so the lowest row wins a tie.  The
+// update is two nested `if`s, the form K1's sweep keeps (k1_render.cu).  The
+// TPU kernel packs the row into the low 9 bits of t and takes one integer
+// minimum: a device of that machine, not carried over, so this minimum and
+// this row are exact.
+__global__ void __launch_bounds__(128)
+    p4_min_kernel(const float* __restrict__ t, float* __restrict__ t_out,
+                  int* __restrict__ row_out, int s, int r) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= r) return;
+  float best_t = 0.f;
+  int best = -1;
+  for (int i = 0; i < s; ++i) {
+    const float v = t[static_cast<size_t>(i) * r + col];
+    if (best < 0) {
+      best_t = v;
+      best = i;
+    } else {
+      if (v < best_t) {
+        best_t = v;
+        best = i;
+      }
+    }
+  }
+  t_out[col] = best_t;
+  row_out[col] = best;
+}
+
+// ---- P5 ---------------------------------------------------------------------
+// out[A, R] = attr[A, S] @ (packed[S, R] == m[R]): per column, the sum of the
+// attribute columns of the rows whose entry equals m (one row normally; a tie
+// sums, as the one-hot product does).  A thread per column; attr is staged in
+// shared memory once per block, transposed to [S][A] so that a matching row's
+// 16 attributes are four float4 reads and no warp strides by S floats.
+constexpr int kP5Attrs = 16;
+
+__global__ void __launch_bounds__(128)
+    p5_gather_kernel(const int* __restrict__ packed, const int* __restrict__ m,
+                     const float* __restrict__ attr, float* __restrict__ out,
+                     int s, int r) {
+  extern __shared__ float4 attr_t[];  // [s][4] float4 = [s][16] float
+  float* flat = reinterpret_cast<float*>(attr_t);
+  for (int e = threadIdx.x; e < kP5Attrs * s; e += blockDim.x)
+    flat[(e % s) * kP5Attrs + e / s] = attr[e];  // attr[a][row], coalesced
+  __syncthreads();
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= r) return;
+  const int want = m[col];
+  float acc[kP5Attrs] = {};
+  for (int i = 0; i < s; ++i) {
+    if (packed[static_cast<size_t>(i) * r + col] == want) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = attr_t[i * 4 + q];
+        acc[4 * q + 0] += v.x;
+        acc[4 * q + 1] += v.y;
+        acc[4 * q + 2] += v.z;
+        acc[4 * q + 3] += v.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kP5Attrs; ++a)
+    out[static_cast<size_t>(a) * r + col] = acc[a];
+}
+
+inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+}  // namespace
+
+// Every launcher takes device pointers and a stream, returns the launch's
+// cudaError_t (0 on success) and does not synchronize.
+
+// x [1024] float -> out [1024] float, rounds [1] int32.
+extern "C" int brt_p1_while(const void* x, void* out, void* rounds,
+                            void* stream) {
+  p1_while_kernel<<<1, kP1Lanes, 0, as_stream(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out),
+      static_cast<int*>(rounds));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a [m, k], b [k, n] -> c [m, n]; m and n multiples of 64, k of 16.
+extern "C" int brt_p2_dot(const void* a, const void* b, void* c, int m, int n,
+                          int k, void* stream) {
+  if (m % kP2Tile || n % kP2Tile || k % kP2K || m <= 0 || n <= 0 || k <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p2_dot_kernel<<<dim3(n / kP2Tile, m / kP2Tile), 256, 0, as_stream(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(c), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [rows, 128] -> out [rows, 128].
+extern "C" int brt_p3_reshape(const void* x, void* out, int rows,
+                              void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  p3_reshape_kernel<<<rows, 128, 0, as_stream(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// t [s, r] float -> t_out [r] float, row_out [r] int32.
+extern "C" int brt_p4_min(const void* t, void* t_out, void* row_out, int s,
+                          int r, void* stream) {
+  if (s <= 0 || r <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  p4_min_kernel<<<(r + 127) / 128, 128, 0, as_stream(stream)>>>(
+      static_cast<const float*>(t), static_cast<float*>(t_out),
+      static_cast<int*>(row_out), s, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// packed [s, r] int32, m [r] int32, attr [16, s] float -> out [16, r] float;
+// s * 64 bytes of shared memory, so s <= 768.
+extern "C" int brt_p5_gather(const void* packed, const void* m,
+                             const void* attr, void* out, int s, int r,
+                             void* stream) {
+  if (s <= 0 || r <= 0 || s > 768)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p5_gather_kernel<<<(r + 127) / 128, 128,
+                     static_cast<size_t>(s) * kP5Attrs * sizeof(float),
+                     as_stream(stream)>>>(
+      static_cast<const int*>(packed), static_cast<const int*>(m),
+      static_cast<const float*>(attr), static_cast<float*>(out), s, r);
+  return static_cast<int>(cudaGetLastError());
+}

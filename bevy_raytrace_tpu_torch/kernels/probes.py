@@ -1,0 +1,238 @@
+"""P1-P5: the five construct probes, on CUDA (`csrc/probes.cu`) and in
+plain PyTorch.
+
+Counterparts of the five functions of `tools/proto_mxu.py`, which ask the
+TPU's compiler whether a render kernel may be built on a construct:
+
+  P1 `p1_while`          a loop that runs while ANY lane is alive, with
+                         per-lane carries (`p1_while_vreg_carry`);
+  P2 `p2_dot`            an in-kernel float32 product (`p2_dot`);
+  P3 `p3_reshape`        [rows, 128] -> [1, rows * 128], x 2, and back
+                         (`p3_reshape`);
+  P4 `p4_min`            per column, the minimum over the rows and its row
+                         (`p4_min_packed`);
+  P5 `p5_onehot_gather`  per column, the attribute columns of the rows equal
+                         to the column's key: attr @ (packed == m)
+                         (`p5_onehot_gather`).
+
+Each wrapper checks its operands and, on CUDA tensors, launches its kernel
+and adds one to its `launches`; on CPU tensors it runs the `*_plain` version
+beside it (the function the kernel is held against on the card); any other
+device raises.  Where the TPU kernel uses a device of that machine, the
+port computes the function itself: P4 returns the exact minimum and the
+exact row (the TPU packs the row into the low 9 bits of the value, which
+truncates the value and mis-orders near-ties).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from bevy_raytrace_tpu_torch.kernels import build
+from bevy_raytrace_tpu_torch.kernels.render_lanes import _check
+
+LANES = 128
+P1_SHAPE = (8, LANES)
+P2_TILE, P2_K = 64, 16
+P5_ATTRS, P5_MAX_ROWS = 16, 768
+
+
+def _bind(library, sigs):
+    """Build (at first use) and load `csrc/<library>.cu` -> {name: its
+    extern "C" launcher}; `sigs` names each launcher's argument types, the
+    stream last, and every one returns its launch's cudaError_t."""
+    lib = build.load(library)
+    out = {}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        out[name] = fn
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _launchers():
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return _bind("probes", {
+        "brt_p1_while": [vp, vp, vp, vp],
+        "brt_p2_dot": [vp, vp, vp, i32, i32, i32, vp],
+        "brt_p3_reshape": [vp, vp, i32, vp],
+        "brt_p4_min": [vp, vp, vp, i32, i32, vp],
+        "brt_p5_gather": [vp, vp, vp, vp, i32, i32, vp]})
+
+
+def _launch(wrapper, launchers, name, device, *args):
+    """Launch `launchers()[name]` on `device`'s current stream and count it
+    on `wrapper`; raises where the device is not CUDA or the launch is
+    refused."""
+    if device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on CUDA (or its plain "
+                         f"version on CPU), not {device}")
+    fn = launchers()[name]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
+    wrapper.launches += 1
+
+
+# --- P1 ---------------------------------------------------------------------
+
+
+def p1_while_plain(x):
+    """P1 in tensor ops -> (out [8, 128], rounds int32 [1])."""
+    a, b = x.clone(), x * 2.0
+    alive = torch.ones_like(x, dtype=torch.bool)
+    rounds = 0
+    while bool(alive.any()):
+        a = a + 1.0
+        b = b * 1.01 + a * 0.001
+        alive = alive & (a < 50.0)
+        rounds += 1
+    return (b + float(rounds),
+            torch.tensor([rounds], dtype=torch.int32, device=x.device))
+
+
+def p1_while(x):
+    """P1: from a = x, b = 2x, every round does a += 1; b = b * 1.01 + a *
+    0.001; alive &= a < 50, while ANY lane is alive; a dead lane's carries
+    go on updating until the last lane dies.  x float32 [8, 128] ->
+    (b + rounds [8, 128], rounds int32 [1])."""
+    device = x.device if isinstance(x, torch.Tensor) else None
+    _check("x", x, torch.float32, P1_SHAPE, device)
+    if device.type == "cpu":
+        return p1_while_plain(x)
+    out = torch.empty_like(x)
+    rounds = torch.empty((1,), dtype=torch.int32, device=device)
+    _launch(p1_while, _launchers, "brt_p1_while", device, x.data_ptr(),
+            out.data_ptr(), rounds.data_ptr())
+    return out, rounds
+
+
+p1_while.launches = 0
+
+
+# --- P2 ---------------------------------------------------------------------
+
+
+def p2_dot_plain(a, b):
+    """P2 in one tensor op: a @ b in float32."""
+    return a @ b
+
+
+def p2_dot(a, b):
+    """P2: a [M, K] @ b [K, N] in float32 by the kernel's own tiles (M and
+    N multiples of 64, K of 16) -> [M, N]."""
+    device = a.device if isinstance(a, torch.Tensor) else None
+    _check("a", a, torch.float32, (None, None), device)
+    m, k = a.shape
+    _check("b", b, torch.float32, (k, None), device)
+    n = b.shape[1]
+    if m % P2_TILE or n % P2_TILE or k % P2_K or 0 in (m, n, k):
+        raise ValueError(f"P2 takes M and N multiples of {P2_TILE} and K a "
+                         f"multiple of {P2_K}, got {m}x{k} @ {k}x{n}")
+    if device.type == "cpu":
+        return p2_dot_plain(a, b)
+    c = torch.empty((m, n), dtype=torch.float32, device=device)
+    _launch(p2_dot, _launchers, "brt_p2_dot", device, a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), m, n, k)
+    return c
+
+
+p2_dot.launches = 0
+
+
+# --- P3 ---------------------------------------------------------------------
+
+
+def p3_reshape_plain(x):
+    """P3 in tensor ops: through the flat view, times 2, and back."""
+    return (x.reshape(1, -1) * 2.0).reshape(x.shape)
+
+
+def p3_reshape(x):
+    """P3: x float32 [rows, 128] -> 2x through a [1, rows * 128] view and
+    back -> [rows, 128]."""
+    device = x.device if isinstance(x, torch.Tensor) else None
+    _check("x", x, torch.float32, (None, LANES), device)
+    if x.shape[0] == 0:
+        raise ValueError("P3 takes at least one row")
+    if device.type == "cpu":
+        return p3_reshape_plain(x)
+    out = torch.empty_like(x)
+    _launch(p3_reshape, _launchers, "brt_p3_reshape", device, x.data_ptr(),
+            out.data_ptr(), x.shape[0])
+    return out
+
+
+p3_reshape.launches = 0
+
+
+# --- P4 ---------------------------------------------------------------------
+
+
+def p4_min_plain(t):
+    """P4 in tensor ops: the exact column minimum and the lowest row that
+    holds it."""
+    s, r = t.shape
+    m = t.min(dim=0).values
+    rows = torch.arange(s, device=t.device)[:, None].expand(s, r)
+    row = torch.where(t == m, rows, s).min(dim=0).values
+    return m.reshape(-1, LANES), row.to(torch.int32).reshape(-1, LANES)
+
+
+def p4_min(t):
+    """P4: t float32 [S, R] (R a multiple of 128) -> (column minimum
+    [R/128, 128], its row int32 [R/128, 128]); the lowest row wins a tie."""
+    device = t.device if isinstance(t, torch.Tensor) else None
+    _check("t", t, torch.float32, (None, None), device)
+    s, r = t.shape
+    if s == 0 or r == 0 or r % LANES:
+        raise ValueError(f"P4 takes at least one row and a multiple of "
+                         f"{LANES} columns, got {s}x{r}")
+    if device.type == "cpu":
+        return p4_min_plain(t)
+    m = torch.empty((r // LANES, LANES), dtype=torch.float32, device=device)
+    row = torch.empty((r // LANES, LANES), dtype=torch.int32, device=device)
+    _launch(p4_min, _launchers, "brt_p4_min", device, t.data_ptr(),
+            m.data_ptr(), row.data_ptr(), s, r)
+    return m, row
+
+
+p4_min.launches = 0
+
+
+# --- P5 ---------------------------------------------------------------------
+
+
+def p5_onehot_gather_plain(packed, m, attr):
+    """P5 as the one-hot product it is."""
+    return attr @ (packed == m).to(torch.float32)
+
+
+def p5_onehot_gather(packed, m, attr):
+    """P5: packed int32 [S, R], m int32 [1, R] (the column keys, normally
+    the column minima), attr float32 [16, S] -> attr @ (packed == m)
+    [16, R]: per column the sum of the attribute columns of the matching
+    rows.  S <= 768 (attr is staged in shared memory)."""
+    device = packed.device if isinstance(packed, torch.Tensor) else None
+    _check("packed", packed, torch.int32, (None, None), device)
+    s, r = packed.shape
+    _check("m", m, torch.int32, (1, r), device)
+    _check("attr", attr, torch.float32, (P5_ATTRS, s), device)
+    if s == 0 or r == 0 or s > P5_MAX_ROWS:
+        raise ValueError(f"P5 takes 1..{P5_MAX_ROWS} rows and at least one "
+                         f"column, got {s}x{r}")
+    if device.type == "cpu":
+        return p5_onehot_gather_plain(packed, m, attr)
+    out = torch.empty((P5_ATTRS, r), dtype=torch.float32, device=device)
+    _launch(p5_onehot_gather, _launchers, "brt_p5_gather", device,
+            packed.data_ptr(), m.data_ptr(), attr.data_ptr(), out.data_ptr(),
+            s, r)
+    return out
+
+
+p5_onehot_gather.launches = 0

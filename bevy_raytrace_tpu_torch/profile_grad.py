@@ -2,6 +2,7 @@
 bounds K3, and the forward kernels side by side.
 
     python3 -m bevy_raytrace_tpu_torch.profile_grad [--out DIR] [--reps N]
+        [--parts k3,forward,profile]
 
 1. Profile: `torch.profiler` over one step of each gradient shape that
    `chip_smoke.py` drives, after one warm-up step: the `cli inverse` step
@@ -32,7 +33,9 @@ bounds K3, and the forward kernels side by side.
    interleaved and timed with CUDA events at the gradient bench, a
    32-sample slice of the flagship (rtiow, 1200x800, depth 8) and the
    reference frame (reference_scene, 1920x1080, 64 spp, depth 3), with the
-   executed rounds per path from K1's `len` output.
+   executed rounds per path from K1's `len` output and a SHA-256 of each
+   kernel's outputs (two builds of a kernel that print the same digest
+   computed the same bits).
 
 Prints a line per measurement, then the card's name and power limit, then
 one JSON object with every number.  `--out DIR` also writes the profiler
@@ -44,6 +47,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -336,9 +340,13 @@ def forward_kernels(dev, reps):
         stats = {"spheres": scene.count, "paths": cfg.rays_per_frame,
                  "rounds_per_path": float(run_k1()[1][:cfg.num_pixels].sum())
                  / cfg.rays_per_frame,
-                 "ms": {k: [] for k in runs}}
-        for fn in runs.values():  # warm-up
-            fn()
+                 "ms": {k: [] for k in runs}, "sha256": {}}
+        for k, fn in runs.items():  # warm-up, and the outputs' digest
+            h = hashlib.sha256()
+            for t in fn():
+                if t is not None:
+                    h.update(t.cpu().numpy().tobytes())
+            stats["sha256"][k] = h.hexdigest()[:16]
         torch.cuda.synchronize()
         for _ in range(reps):
             for k, fn in runs.items():
@@ -355,7 +363,8 @@ def forward_kernels(dev, reps):
         for k, ms in stats["ms"].items():
             med = float(np.median(ms))
             log(f"[forward]   {k:22s} median {med:9.3f} ms ({med / base:6.3f} "
-                f"x k1); runs {[round(m, 3) for m in ms]}")
+                f"x k1); outputs sha256 {stats['sha256'][k]}; runs "
+                f"{[round(m, 3) for m in ms]}")
         out[name] = stats
     return out
 
@@ -369,7 +378,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5,
                     help="interleaved rounds of the K3 probes and of the "
                          "forward kernels")
+    ap.add_argument("--parts", default="k3,forward,profile",
+                    help="comma list of the parts to run: k3 (its probes), "
+                         "forward (K1, K2, K4 interleaved), profile")
     args = ap.parse_args(argv)
+    parts = args.parts.split(",")
     if not torch.cuda.is_available():
         print("profile_grad: no CUDA device", file=sys.stderr)
         return 2
@@ -378,9 +391,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     smi = smi_line()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
-    probes, ptxas = k3_probes(dev, args.reps)
-    forward = forward_kernels(dev, args.reps)
-    prof = profile_steps(dev, args.out)
+    probes, ptxas = k3_probes(dev, args.reps) if "k3" in parts else ({}, {})
+    forward = forward_kernels(dev, args.reps) if "forward" in parts else {}
+    prof = profile_steps(dev, args.out) if "profile" in parts else {}
     log(smi)
     log(json.dumps({"device": smi, "k3_probes": probes, "k3_ptxas": ptxas,
                     "forward_kernels": forward, "profile": prof}))

@@ -19,6 +19,10 @@ at a small size both ways and holds:
     a backward, of (11 S + 16) * 4 bytes in the fast backward.
 
 Prints one JSON line of what it counted and exits 0, or raises.
+
+With `--dryrun` a rank runs `dryrun_step` instead (`graft_entry.
+dryrun_multichip` starts the ranks that way): one full training step and one
+sharded fast-gradient step at tiny shapes, finite or an error.
 """
 
 from __future__ import annotations
@@ -41,6 +45,74 @@ def _close(got, want, what):
             f"{float((got - want).abs().max()):.3e} of max-abs {scale:.3e}")
 
 
+def dryrun_step(mesh) -> dict:
+    """One training step and one fast-gradient step over `mesh` at tiny
+    shapes (width 8 per rank, height 8, 2 spp, depth 3, edge_softness 0.01,
+    rtiow_final_scene(0, grid=2)): the sharded render of the target, the
+    two-sample cross loss on sharded renders, its gradient with respect to
+    the replicated centers and albedo (summed over the ranks by the
+    backward's all-reduce), one Adam update; then the gradient of an L2 loss
+    through `make_fast_renderer_sharded` at the updated parameters.  Raises
+    unless the loss and every gradient are finite -> what it measured."""
+    import torch
+
+    from bevy_raytrace_tpu_torch import RenderConfig, scenes
+    from bevy_raytrace_tpu_torch.inverse import make_fast_renderer_sharded
+    from bevy_raytrace_tpu_torch.shard import render_sharded
+
+    config = RenderConfig(width=8 * mesh.world_size, height=8,
+                          samples_per_pixel=2, max_depth=3,
+                          edge_softness=0.01)
+    scene, _ = scenes.rtiow_final_scene(seed=0, grid=2, device=mesh.device)
+    camera = scenes.rtiow_final_camera(config.aspect, device=mesh.device)
+    with torch.no_grad():
+        target = render_sharded(scene, camera, config, mesh, gather=True)
+
+    params = {"centers": scene.centers.clone().requires_grad_(True),
+              "albedo": scene.materials.albedo.clone().requires_grad_(True)}
+    opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+
+    def with_params():
+        mats = dataclasses.replace(scene.materials, albedo=params["albedo"])
+        return dataclasses.replace(scene, centers=params["centers"],
+                                   materials=mats)
+
+    # Two-sample cross estimator (an unbiased gradient under Monte-Carlo
+    # noise); both renders are pixel-sharded over the whole mesh.
+    frame = 0
+    img_a = render_sharded(with_params(), camera, config, mesh, 2 * frame,
+                           gather=True)
+    img_b = render_sharded(with_params(), camera, config, mesh,
+                           2 * frame + 1, gather=True)
+    loss = torch.mean((img_a - target) * (img_b - target))
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    train_grads = {k: v.grad.clone() for k, v in params.items()}
+    opt.step()
+    if not (bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in train_grads.values())):
+        raise AssertionError(f"non-finite training step: loss {loss}")
+
+    # The sharded fast gradient path: the recording forward and the replay
+    # kernel per rank stripe, the table and camera cotangents summed over
+    # the mesh; edge_softness exercises the runner-up residual stream too.
+    fast = make_fast_renderer_sharded(config, mesh)
+    img = fast(with_params(), camera, 1, gather=True)
+    g_fast = torch.autograd.grad(torch.mean((img - target) ** 2),
+                                 list(params.values()))
+    if not all(bool(torch.isfinite(g).all()) for g in g_fast):
+        raise AssertionError("non-finite sharded fast-grad")
+    return {"loss": float(loss), "width": config.width,
+            "height": config.height, "spheres": scene.count,
+            "moved": float((params["centers"].detach()
+                            - scene.centers).abs().max()),
+            "train_grad_max": {k: float(g.abs().max())
+                               for k, g in train_grads.items()},
+            "fast_grad_max": {k: float(g.abs().max())
+                              for k, g in zip(params, g_fast)},
+            "fast_all_reduces": fast.stats["all_reduces"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rank", type=int, required=True)
@@ -51,6 +123,9 @@ def main(argv=None) -> int:
                     help='"cpu" runs on the CPU over gloo; default: CUDA')
     ap.add_argument("--width", type=int, default=64)
     ap.add_argument("--height", type=int, default=32)
+    ap.add_argument("--dryrun", action="store_true",
+                    help="run one tiny training step and one fast-gradient "
+                         "step instead of the self-check")
     args = ap.parse_args(argv)
 
     import torch
@@ -81,6 +156,16 @@ def main(argv=None) -> int:
     if mesh.rank != dist.get_rank() or mesh.rank != (
             mesh.host * mesh.chips + mesh.chip):
         raise AssertionError(f"rank arithmetic: {mesh}")
+    if args.dryrun:
+        report = dryrun_step(mesh)
+        dist.barrier()
+        dist.destroy_process_group()
+        print(json.dumps({
+            "ok": True, "rank": mesh.rank, "hosts": mesh.hosts,
+            "chips": mesh.chips, "device": str(mesh.device),
+            "backend": "nccl" if mesh.device.type == "cuda" else "gloo",
+            **report}), flush=True)
+        return 0
 
     # Count the collectives the package calls.
     calls = {"all_reduce": 0, "all_gather": 0}

@@ -7,10 +7,12 @@ Drives the port's main paths from a checkout of this repository — the
 forward render of a frame through the K1 CUDA kernel, inverse rendering
 through the K2 (recording forward) and K3 (replay gradient) CUDA kernels,
 the sharded gradient path (one process per device on torch.distributed)
-through K2/K4 (the dense-sweep recorder) and K3 in stripe mode, and the
+through K2/K4 (the dense-sweep recorder) and K3 in stripe mode, the
 command line (`cli render | animate | serve | inverse`, in-process) with
-K2's cluster-culled traversal — and fails loudly — a traceback and a
-nonzero exit — if any phase fails:
+K2's cluster-culled traversal, and the tool path (`tools.proto_probes`,
+`tools.fp32_probe`, `tools.grad_bench`, `graft_entry`) through the probe
+kernels P1-P5 and V1-V3 — and fails loudly — a traceback and a nonzero
+exit — if any phase fails:
 
   1. environment: torch/CUDA versions, the card (nvidia-smi), nvcc;
   2. build: K1 from bevy_raytrace_tpu_torch/csrc with nvcc, timed;
@@ -90,7 +92,37 @@ nonzero exit — if any phase fails:
  20. Renderer(backend="pallas") over three frames of the reference frame:
      one plan, reused; the last frame against the brute-force launch;
  21. K1's, K2's (with clusters and without) and K3's launch counts over
-     phases 19-20 must be > 0.
+     phases 19-20 must be > 0;
+ 22. build: the probes (csrc/probes.cu: P1-P5; csrc/fp32_probe.cu: V1-V3),
+     one nvcc each, started together, timed, with ptxas registers and
+     spills;
+ 23. `tools.proto_probes.main([])` (P1-P5 on the reference tool's inputs,
+     two launches each, counted); then each of P1-P5 against its plain
+     version on the card on those inputs and, for P1, P4 and P5, on a second
+     seeded input (P1: lanes dying in different rounds; P4, P5: a forced tie
+     in one column).  Tolerances: P1 rtol 1e-5 (the kernel contracts one
+     multiply-add); P2 1e-5 of the largest entry (the order of the sum over
+     K = 16), with torch.backends.cuda.matmul.allow_tf32 False; P3, P4
+     (value and row) and P5 exact.  Each beside the one PyTorch call that
+     computes the same function, where there is one (library_ms);
+ 24. `tools.fp32_probe.main([])`: V1, V2 (float32 and bfloat16) and V3 (prod,
+     nosqrt, nobranch, smem) at the reference's shape (256 spheres, 1,024
+     rays, 4,000 rounds) and at the card-filling shape (270,336 rays, 400
+     rounds; V3 also on two scenes' tables with camera rays in raster order,
+     uniform within a warp, and shuffled), launches counted; twice the rounds
+     must take twice the time; no rate may exceed the card's peak.  Then
+     every kernel and variant against its plain version at the reference's
+     shape with 3 rounds: V1's and V3's t to rtol 1e-5 (atol 2e-6: a root is
+     a difference of O(1) terms), V3's index equal on all but near-ties (at
+     most 0.5% of columns), V2 float32 rtol 1e-4, bfloat16 rtol 5e-2 (bf16
+     rounds after every operation and __hfma2 fuses);
+ 25. `tools.grad_bench.main(["400", "300", "16", "8",
+     "kernel,torch,wavefront"])` and `[..., "kernel", "--forward", "sweep"]`
+     with their launch counts held to exact numbers; `graft_entry.entry()`
+     and its fn run once on the card, held against K1's image of the same
+     frame under parity.COMPILED; `graft_entry.dryrun_multichip(1)`: one
+     rank on the card in an nccl group, a finite training step and a finite
+     fast-gradient step.
 
 Every kernel entry carries bound_ms, the least time the card could take for
 the entry's shape: the larger of the bytes the function must move (each
@@ -99,8 +131,11 @@ operations over 67 TFLOP/s (the H100 SXM data sheet).  Operations are
 counted from the CUDA sources per ray-sphere test, per executed round and
 per path (the constants below), times what THIS run's data needs: executed
 rounds from K1's `len` output at the same shape, hit bounces from the
-recorded residuals.  No single PyTorch call computes what any of these
-kernels computes, so library_ms is null throughout.
+recorded residuals; P1's rounds from its output; the probes' from their
+shapes, bfloat16 against 133.8 TFLOP/s.  No single PyTorch call computes what
+K1-K4, P1 or V1-V3 compute, so their library_ms is null; P2-P5 each stand
+beside one (torch.matmul, a reshape and multiply, torch.min, an indexed
+gather), timed here and used nowhere in the package.
 
 Kernel times are CUDA-event times; step times are host-clock times to
 torch.cuda.synchronize().  Entry points are called without a device where
@@ -167,10 +202,10 @@ K3_HIT_FLOPS = 200
 K3_PATH_FLOPS = 160
 
 
-def bound(flops, nbytes):
-    """{"bound_ms", "bound_by"} of work that needs `flops` float32
-    operations and moves `nbytes` bytes."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
+    """{"bound_ms", "bound_by"} of work that needs `flops` operations (of
+    float32 unless `peak_flops` says otherwise) and moves `nbytes` bytes."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -216,7 +251,7 @@ def k1_rounds(scene, cam, cfg, frame=0, sample_base=0):
     return float(ln[:cfg.num_pixels].sum())
 
 
-def kernel_entry(name, source, replaces, launches, ks):
+def kernel_entry(name, source, replaces, launches, ks, library_ms=None):
     """A kernel's line of the {"kernels": [...]} object from its checks
     `ks`; the first check gives the headline ms, plain_ms and bound."""
     return {"name": name, "route": "cuda", "source": source,
@@ -224,7 +259,7 @@ def kernel_entry(name, source, replaces, launches, ks):
             "max_abs_err": max(c["max_abs_err"] for c in ks),
             "ms": ks[0]["ms"], "plain_ms": ks[0]["plain_ms"],
             "bound_ms": ks[0]["bound_ms"], "bound_by": ks[0]["bound_by"],
-            "library_ms": None, "checks": ks}
+            "library_ms": library_ms, "checks": ks}
 
 
 def gradient_phases(dev, smi):
@@ -1150,6 +1185,312 @@ def cli_phases(dev, smi, shared, ref):
                       "pallas_session_frame_ms": frame_ms}
 
 
+def tool_phases(dev, smi):
+    """Phases 22-25: the probe kernels P1-P5 and V1-V3 behind their tools,
+    the gradient bench tool and the graft entry points.  Returns (the
+    probes' entries of the {"kernels": [...]} line, K1-K4's launch counts
+    over the tool path, extra stats)."""
+    import numpy as np
+    import torch
+
+    from bevy_raytrace_tpu_torch import RenderConfig, graft_entry
+    from bevy_raytrace_tpu_torch.kernels import build
+    from bevy_raytrace_tpu_torch.kernels import fp32_probe as vp
+    from bevy_raytrace_tpu_torch.kernels import probes as pp
+    from bevy_raytrace_tpu_torch.kernels import record as k2
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
+    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
+    from bevy_raytrace_tpu_torch.parity import COMPILED, compare
+    from bevy_raytrace_tpu_torch.tools import fp32_probe as fp32_tool
+    from bevy_raytrace_tpu_torch.tools import grad_bench, proto_probes
+
+    # ---- 22. build the probes ---------------------------------------------
+    names = ["probes", "fp32_probe"]
+    t0 = time.perf_counter()
+    build.load_all(names)
+    build_s = time.perf_counter() - t0
+    for name in names:
+        secs, out = build.BUILD_LOG.get(name, (0.0, ""))
+        log(f"[build] {name}: nvcc {secs:.2f} s")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    log(f"[build] probes + fp32_probe in {build_s:.2f} s (in parallel)")
+
+    wrappers = {"p1": pp.p1_while, "p2": pp.p2_dot, "p3": pp.p3_reshape,
+                "p4": pp.p4_min, "p5": pp.p5_onehot_gather,
+                "v1": vp.v1_sweep, "v2": vp.v2_fma, "v3": vp.v3_sweep,
+                "k1": k1.render_lanes, "k2": k2.record_frame,
+                "k3": k3.replay_grad, "k4": k4.sweep_record_frame}
+    launches = dict.fromkeys(wrappers, 0)
+    legs = {}
+
+    def counted(leg, fn, **want):
+        """fn() with every count at 0 before and read after -> its result.
+        The leg must launch exactly `want` (kernels not named: none)."""
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        out = fn()
+        got = {k: w.launches for k, w in wrappers.items()}
+        legs[leg] = {k: v for k, v in got.items() if v}
+        log(f"[launches] {leg}: {legs[leg]}")
+        check(got == {**dict.fromkeys(got, 0), **want},
+              f"{leg} launched {got}, expected exactly {want}")
+        for k, v in got.items():
+            launches[k] += v
+        return out
+
+    def as_tuple(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    # ---- 23. P1-P5 ----------------------------------------------------------
+    rc = counted("tools.proto_probes", lambda: proto_probes.main([]),
+                 p1=2, p2=2, p3=2, p4=2, p5=2)
+    check(rc == 0, f"tools.proto_probes exited {rc}")
+    log(f"[probes] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32} (P2's plain version and "
+        f"library call are float32 products)")
+    ref = {k: tuple(torch.from_numpy(v).to(dev) for v in ops)
+           for k, ops in proto_probes.reference_inputs().items()}
+    checks = {k: [] for k in ("p1", "p2", "p3", "p4", "p5", "v1", "v2", "v3")}
+    library = {}
+
+    def p_check(key, label, wrapper, plain, operands, flops, nbytes,
+                rtol=0.0, atol=0.0, lib=None):
+        """A construct probe against its plain version on the card: every
+        output within atol + rtol * |plain| (0, 0: exact)."""
+        ms, got = cuda_ms(lambda: wrapper(*operands), 200)
+        plain_ms, want = cuda_ms(lambda: plain(*operands), 3)
+        got, want = as_tuple(got), as_tuple(want)
+        err = 0.0
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"{label}: output {a.shape} {a.dtype} vs the plain "
+                  f"version's {b.shape} {b.dtype}")
+            diff = (a.double() - b.double()).abs()
+            err = max(err, float(diff.max()))
+            check(bool((diff <= atol + rtol * b.double().abs()).all()),
+                  f"{label}: off the plain version by {float(diff.max())} "
+                  f"(rtol {rtol}, atol {atol})")
+        if callable(flops):
+            flops = flops(got)
+        entry = {"shape": label, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, **bound(flops, nbytes)}
+        line = (f"[probes] {label}: kernel {ms * 1e3:.2f} us, plain version "
+                f"{plain_ms * 1e3:.2f} us, bound {entry['bound_ms'] * 1e3:.3f}"
+                f" us ({entry['bound_by']}); max abs err {err:.3e}")
+        if lib is not None:
+            library[key], _ = cuda_ms(lib, 200)
+            line += f"; library call {library[key] * 1e3:.2f} us"
+        log(line + f" on {smi}")
+        checks[key].append(entry)
+        return got
+
+    (x1,) = ref["p1_while"]
+    seeded = torch.from_numpy(np.random.RandomState(7).uniform(
+        0.0, 40.0, (8, 128)).astype(np.float32)).to(dev)
+    for label, x in (("x = 0 (the reference's)", x1),
+                     ("seeded x in [0, 40)", seeded)):
+        # Per lane and round: an add, a multiply, a multiply-add, a compare.
+        out, rounds = p_check(
+            "p1", f"P1 [8,128] {label}", pp.p1_while, pp.p1_while_plain,
+            (x,), lambda got: int(got[1]) * 1024 * 5, 2 * 1024 * 4 + 4,
+            rtol=1e-5)
+        log(f"[probes] P1 {label}: {int(rounds)} rounds")
+    check(int(rounds) == int(np.ceil(50.0 - float(seeded.min()))),
+          "P1 did not run until its last lane died")
+    a, b = ref["p2_dot"]
+    scale = float((a @ b).abs().max())
+    p_check("p2", "P2 [1024,16] @ [16,1024]", pp.p2_dot, pp.p2_dot_plain,
+            (a, b), 2 * 1024 * 1024 * 16,
+            (1024 * 16 * 2 + 1024 * 1024) * 4, atol=1e-5 * scale,
+            lib=lambda: torch.matmul(a, b))
+    (x3,) = ref["p3_reshape"]
+    p_check("p3", "P3 [8,128]", pp.p3_reshape, pp.p3_reshape_plain, (x3,),
+            1024, 2 * 1024 * 4, lib=lambda: x3.reshape(1, -1) * 2.0)
+    (t4,) = ref["p4_minpack"]
+    tie_t = t4.clone()
+    tie_t[400, 5] = tie_t[17, 5] = 0.5
+    for label, t in (("the reference's t", t4), ("a tie in column 5", tie_t)):
+        m, row = p_check(
+            "p4", f"P4 [512,1024] {label}", pp.p4_min, pp.p4_min_plain, (t,),
+            512 * 1024, 512 * 1024 * 4 + 1024 * 8,
+            lib=(lambda t=t: torch.min(t, dim=0)) if t is t4 else None)
+    check(float(m[0, 5]) == 0.5 and int(row[0, 5]) == 17,
+          "P4: the lowest row did not win the tie")
+    packed, m5, attr = ref["p5_onehot"]
+    tie_p = packed.clone()
+    tie_p[3, 7] = tie_p[300, 7] = -1
+    for label, pk in (("the reference's keys", packed),
+                      ("a tie in column 7", tie_p)):
+        mk = pk.min(dim=0, keepdim=True).values
+        out = p_check(
+            "p5", f"P5 [512,1024] x [16,512] {label}", pp.p5_onehot_gather,
+            pp.p5_onehot_gather_plain, (pk, mk, attr), 512 * 1024 + 16 * 1024,
+            (512 * 1024 + 1024 + 16 * 512 + 16 * 1024) * 4,
+            lib=(lambda: attr[:, torch.min(packed, dim=0).indices])
+            if pk is packed else None)[0]
+    check(torch.equal(out[:, 7], attr[:, 3] + attr[:, 300]),
+          "P5: the tied rows did not sum")
+
+    # ---- 24. V1-V3 ----------------------------------------------------------
+    rc = counted("tools.fp32_probe", lambda: fp32_tool.main([]),
+                 v1=12, v2=16, v3=72)
+    check(rc == 0, f"tools.fp32_probe exited {rc}")
+    rows = list(fp32_tool.ROWS)
+    check(all(r["device"].startswith("cuda") and 0.0 < r["share_of_peak"]
+              <= 1.0 for r in rows),
+          "a probe's rate is missing or above the card's peak")
+
+    g, r = (torch.from_numpy(v).to(dev)
+            for v in fp32_tool.reference_inputs(256, 1024))
+    g16, r16 = g.to(torch.bfloat16), r.to(torch.bfloat16)
+
+    def v_bound(kind, s, n, iters, dtype="float32"):
+        """Bound of a rate probe: the counted operations against the peak
+        of their type; both operands read once, the outputs written once."""
+        size = 2 if dtype == "bfloat16" else 4
+        return bound(s * n * iters * vp.OPS[kind],
+                     (s * 8 + 8 * n) * size + n * (8 if kind == "v3" else 4),
+                     fp32_tool.PEAK[dtype])
+
+    def v_check(key, label, fn, plain_fn, rtol, atol=0.0, dtype="float32"):
+        """A rate probe against its plain version at the reference's shape,
+        3 rounds: t within atol + rtol * |plain|, NaN where the plain
+        version has NaN; V3's index equal on all but 0.5% of columns."""
+        ms, got = cuda_ms(fn, 20)
+        plain_ms, want = cuda_ms(plain_fn, 3)
+        got, want = as_tuple(got), as_tuple(want)
+        miss = torch.isnan(want[0])
+        check(torch.equal(torch.isnan(got[0]), miss),
+              f"{label}: NaN elsewhere than the plain version")
+        diff = (got[0] - want[0]).abs()[~miss]
+        err = float(diff.max())
+        check(bool((diff <= atol + rtol * want[0][~miss].abs()).all()),
+              f"{label}: off the plain version by {err} (rtol {rtol}, atol "
+              f"{atol})")
+        entry = {"shape": label, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, **v_bound(key, 256, 1024, 3, dtype)}
+        if len(got) == 2:
+            entry["index_off"] = float((got[1] != want[1]).float().mean())
+            check(entry["index_off"] <= 0.005 and bool((got[1] >= 0).any()),
+                  f"{label}: index differs on {entry['index_off']:.3%}")
+        log(f"[fp32 probe] {label}: kernel {ms * 1e3:.2f} us, plain version "
+            f"{plain_ms * 1e3:.2f} us; max abs err {err:.3e}"
+            + (f", index differing on {entry['index_off']:.4%}"
+               if len(got) == 2 else ""))
+        checks[key].append(entry)
+
+    at = "(256,1024) x 3 rounds"
+    v_check("v1", f"V1 {at}", lambda: vp.v1_sweep(g, r, 3),
+            lambda: vp.v1_sweep_plain(g, r, 3), 1e-5, 2e-6)
+    v_check("v2", f"V2 float32 {at}", lambda: vp.v2_fma(g, r, 3),
+            lambda: vp.v2_fma_plain(g, r, 3), 1e-4)
+    v_check("v2", f"V2 bfloat16 {at}", lambda: vp.v2_fma(g16, r16, 3),
+            lambda: vp.v2_fma_plain(g16, r16, 3), 5e-2, dtype="bfloat16")
+    for variant in vp.VARIANTS:
+        v_check("v3", f"V3 {variant} {at}",
+                lambda variant=variant: vp.v3_sweep(g, r, 3, variant),
+                lambda variant=variant: vp.v3_sweep_plain(g, r, 3, variant),
+                1e-5, 2e-6)
+
+    # The headline of each V entry: the card-filling shape as the tool ran
+    # it, its plain version at the same shape and rounds (one run), and
+    # the values' error from the checks above.
+    gc, rc_ = (torch.from_numpy(v).to(dev) for v in fp32_tool.reference_inputs(
+        256, fp32_tool.CARD_RAYS))
+    n, iters = fp32_tool.CARD_RAYS, fp32_tool.CARD_ITERS
+    for key, name, plain_fn in (
+            ("v1", "v1 sweep", lambda: vp.v1_sweep_plain(gc, rc_, iters)),
+            ("v2", "v2 fma f32", lambda: vp.v2_fma_plain(gc, rc_, iters)),
+            ("v3", "v3 prod", lambda: vp.v3_sweep_plain(gc, rc_, iters))):
+        row = next(x for x in rows if x["name"] == name and x["rays"] == n
+                   and x["iters"] == iters and x["rays_as"] == "reference")
+        plain_ms, _ = cuda_ms(plain_fn, 1, warm=False)
+        head = {"shape": f"{name} (256,{n}) x {iters} rounds, the card-"
+                         f"filling shape of tools.fp32_probe",
+                "max_abs_err": max(c["max_abs_err"] for c in checks[key]),
+                "ms": row["ms"], "plain_ms": plain_ms,
+                "share_of_peak": row["share_of_peak"],
+                **v_bound(key, 256, n, iters)}
+        log(f"[fp32 probe] {head['shape']}: kernel {row['ms']:.3f} ms "
+            f"({row['share_of_peak']:.2%} of peak), plain version "
+            f"{plain_ms:.1f} ms, bound {head['bound_ms']:.3f} ms on {smi}")
+        checks[key].insert(0, head)
+    del gc, rc_
+    torch.cuda.empty_cache()
+
+    # ---- 25. grad_bench, graft_entry ----------------------------------------
+    # A step is one recording forward and one replay: four steps a path.  The
+    # torch path's backward and the wavefront launch no kernel.
+    size = ["400", "300", "16", "8"]
+    rc = counted("tools.grad_bench kernel,torch,wavefront",
+                 lambda: grad_bench.main([*size, "kernel,torch,wavefront"]),
+                 k2=8, k3=4)
+    check(rc == 0, f"tools.grad_bench exited {rc}")
+    steps = list(grad_bench.STEPS)
+    rc = counted("tools.grad_bench kernel --forward sweep",
+                 lambda: grad_bench.main([*size, "kernel", "--forward",
+                                          "sweep"]), k4=4, k3=4)
+    check(rc == 0, f"tools.grad_bench --forward sweep exited {rc}")
+    steps += grad_bench.STEPS
+    check(len(steps) == 4 and all(s["device"].startswith("cuda")
+                                  for s in steps),
+          f"grad_bench did not run its four paths on the card: {steps}")
+
+    fn, (scene, cam) = graft_entry.entry()
+    check(scene.device.type == "cuda", "graft_entry.entry() is not on the card")
+
+    def run_entry():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = fn(scene, cam)
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t0
+
+    img, entry_s = counted("graft_entry.entry fn", run_entry)
+    cfg = RenderConfig(width=400, height=224, samples_per_pixel=4,
+                       max_depth=8, spp_chunk=4)
+    entry_vs = compare(img.cpu().numpy(),
+                       k1.render_mxu(scene, cam, cfg).cpu().numpy(), COMPILED)
+    log(f"[graft] entry() fn: {tuple(img.shape)} in {entry_s:.3f} s "
+        f"({scene.count} spheres); vs K1's image {entry_vs}")
+    check(tuple(img.shape) == (224, 400, 3)
+          and bool(torch.isfinite(img).all()) and entry_vs["ok"],
+          f"graft_entry.entry()'s image: {entry_vs}")
+    t0 = time.perf_counter()
+    (report,) = graft_entry.dryrun_multichip(1)
+    dry_s = time.perf_counter() - t0
+    log(f"[graft] dryrun_multichip(1) in {dry_s:.1f} s: {report}")
+    check(report["ok"] and report["backend"] == "nccl"
+          and report["device"].startswith("cuda")
+          and (report["hosts"], report["chips"]) == (1, 1)
+          and np.isfinite(report["loss"]) and report["moved"] > 0.0
+          and all(v > 0.0 for v in report["fast_grad_max"].values()),
+          f"dryrun_multichip(1): {report}")
+
+    csrc = "bevy_raytrace_tpu_torch/csrc/"
+    entries = [
+        kernel_entry(name, csrc + source, f"tools/{tool}.py:{line}",
+                     launches[key], checks[key], library.get(key))
+        for key, name, source, tool, line in (
+            ("p1", "p1_while", "probes.cu", "proto_mxu", 24),
+            ("p2", "p2_dot", "probes.cu", "proto_mxu", 55),
+            ("p3", "p3_reshape", "probes.cu", "proto_mxu", 74),
+            ("p4", "p4_min", "probes.cu", "proto_mxu", 90),
+            ("p5", "p5_onehot_gather", "probes.cu", "proto_mxu", 116),
+            ("v1", "v1_sweep", "fp32_probe.cu", "vpu_probe", 31),
+            ("v2", "v2_fma", "fp32_probe.cu", "vpu_probe", 69),
+            ("v3", "v3_sweep", "fp32_probe.cu", "vpu_probe", 114))]
+    log(f"[launches] over the tool path (phases 23-25): {launches}")
+    return entries, launches, {
+        "probe_build_s": build_s, "tool_leg_launches": legs,
+        "fp32_probe_rows": rows, "grad_bench_steps": steps,
+        "graft_entry_s": entry_s, "graft_entry_vs_k1": entry_vs,
+        "graft_dryrun": report, "graft_dryrun_s": dry_s}
+
+
 def main() -> int:
     import torch
 
@@ -1314,6 +1655,7 @@ def main() -> int:
         dev, smi, shared, (ref_scene, ref_cam, ref_cfg))
     cli_launches, cli_stats = cli_phases(dev, smi, shared,
                                          (ref_scene, ref_cam, ref_cfg))
+    tool_entries, tool_launches, tool_stats = tool_phases(dev, smi)
     checks = shared["checks"]
     csrc = "bevy_raytrace_tpu_torch/csrc/"
     entries = [
@@ -1333,12 +1675,20 @@ def main() -> int:
     for entry, key in zip(entries, ("k1", "k2", "k3", "k4")):
         entry["launches_sharded_path"] = shard_launches[key]
         entry["launches_cli_path"] = cli_launches[key]
+        entry["launches_tool_path"] = tool_launches[key]
     entries[1]["launches_cli_path_clustered"] = cli_launches["k2_clustered"]
+    entries += tool_entries
+    for entry in entries:
+        check(entry["launches"] > 0 and 0.0 < entry["bound_ms"]
+              <= entry["ms"],
+              f"{entry['name']}: not launched on its path, or faster than "
+              f"its bound (the count of its work is wrong): {entry}")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"build_s": build_s, "verify_ms": verify_times,
                     "reference_frame_ms": frame_ms,
                     "flagship_s": flag_s, "flagship_rays_per_s": flag_rps,
-                    **grad_stats, **shard_stats, **cli_stats}))
+                    **grad_stats, **shard_stats, **cli_stats,
+                    **tool_stats}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

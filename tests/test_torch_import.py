@@ -24,7 +24,9 @@ def test_import_does_not_load_jax():
         "new = {'shard.mesh', 'shard.render_sharded', 'shard.worker',\n"
         "       'kernels.sweep_record', 'inverse.shard_grad', 'device',\n"
         "       'cli', 'io', 'io.native', 'io.image', 'io.writer',\n"
-        "       'kernels.clusters'}\n"
+        "       'kernels.clusters', 'kernels.probes', 'kernels.fp32_probe',\n"
+        "       'tools', 'tools.proto_probes', 'tools.fp32_probe',\n"
+        "       'tools.grad_bench', 'graft_entry', 'wavefront.oracle'}\n"
         "assert new <= seen, new - seen\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith("
         "('jax.', 'bevy_raytrace_tpu.')) or k == 'bevy_raytrace_tpu')\n"
@@ -47,7 +49,11 @@ def test_no_module_imports_jax():
     assert {"shard/mesh.py", "shard/render_sharded.py", "shard/worker.py",
             "kernels/sweep_record.py", "inverse/shard_grad.py",
             "device.py", "cli.py", "io/__init__.py", "io/native.py",
-            "io/image.py", "io/writer.py", "kernels/clusters.py"} <= names
+            "io/image.py", "io/writer.py", "kernels/clusters.py",
+            "kernels/probes.py", "kernels/fp32_probe.py", "tools/__init__.py",
+            "tools/proto_probes.py", "tools/fp32_probe.py",
+            "tools/grad_bench.py", "graft_entry.py",
+            "wavefront/oracle.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
 
@@ -70,3 +76,17 @@ def test_cli_help_needs_no_device():
     assert out.returncode == 0, out.stderr
     for cmd in ("render", "animate", "serve", "inverse"):
         assert cmd in out.stdout
+
+
+def test_tools_help_needs_no_device():
+    """Every tool prints its usage on any machine, and importing one builds
+    nothing."""
+    for tool in ("proto_probes", "fp32_probe", "grad_bench"):
+        out = subprocess.run(
+            [sys.executable, "-m", f"bevy_raytrace_tpu_torch.tools.{tool}",
+             "--help"], cwd=PKG.parent, capture_output=True, text=True,
+            timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert "--device" in out.stdout
+    assert not list((PKG / "_build").glob("libprobes-*")) and not list(
+        (PKG / "_build").glob("libfp32_probe-*"))

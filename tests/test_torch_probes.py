@@ -1,0 +1,330 @@
+"""The port's probes (`kernels/probes.py` P1-P5, `kernels/fp32_probe.py`
+V1-V3) against the reference's tools on the same numpy inputs.
+
+The reference's functions live in `tools/proto_mxu.py` and
+`tools/vpu_probe.py`, which are loaded by path; their `pl.pallas_call` runs
+in interpret mode for the length of a test (the TPU kernels have no other
+form on a CPU).  The port's side is each wrapper on CPU tensors, which runs
+the plain PyTorch version the CUDA kernel is held against on the card.
+"""
+
+import functools
+import importlib.util
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from bevy_raytrace_tpu_torch import set_default_device
+from bevy_raytrace_tpu_torch.kernels import fp32_probe as vp
+from bevy_raytrace_tpu_torch.kernels import probes as pp
+
+torch.set_num_threads(2)
+set_default_device("cpu")  # the port defaults to the CUDA device
+
+_TOOLS = os.path.join(os.path.dirname(__file__), os.pardir, "tools")
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_reference_{name}", os.path.join(_TOOLS, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """`pl.pallas_call` in interpret mode, as the tools see it."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=True))
+
+
+@pytest.fixture(scope="module")
+def proto():
+    return _load("proto_mxu")
+
+
+@pytest.fixture(scope="module")
+def vpu():
+    return _load("vpu_probe")
+
+
+# --- P1-P5: the reference's own inputs ---------------------------------------
+
+
+def _p1(proto):
+    want = proto.p1_while_vreg_carry()
+    out, rounds = pp.p1_while(torch.zeros(8, 128))
+    assert int(rounds) == 50 and out.shape == (8, 128)
+    np.testing.assert_allclose(want, 51.5108, rtol=1e-5)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5)
+
+
+def _p2(proto):
+    assert proto.p2_dot() == 0.0
+    a = np.random.RandomState(0).randn(1024, 16).astype(np.float32)
+    b = np.random.RandomState(1).randn(16, 1024).astype(np.float32)
+    got = pp.p2_dot(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    # Float32 sums over K = 16 in another order than numpy's float64.
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-6
+
+
+def _p3(proto):
+    assert proto.p3_reshape() == 0.0
+    x = np.arange(1024, dtype=np.float32).reshape(8, 128)
+    np.testing.assert_array_equal(
+        pp.p3_reshape(torch.from_numpy(x)).numpy(), x * 2.0)
+
+
+def _p4(proto):
+    # The reference's packed key clears the low 9 bits of t, so near-ties
+    # come out in the wrong order: 8 of its 1,024 rows are not the argmin.
+    # The port returns the exact minimum and row.
+    assert proto.p4_min_packed() == 8
+    t = 1.0 + np.random.RandomState(2).rand(512, 1024).astype(np.float32)
+    m, row = pp.p4_min(torch.from_numpy(t))
+    assert m.shape == row.shape == (8, 128) and row.dtype == torch.int32
+    assert int(np.sum(row.numpy().reshape(-1) != np.argmin(t, axis=0))) == 0
+    np.testing.assert_array_equal(m.numpy().reshape(-1), t.min(axis=0))
+
+
+def _p5(proto):
+    assert proto.p5_onehot_gather() == 0.0
+    rs = np.random.RandomState(3)
+    packed = rs.randint(0, 1 << 20, (512, 1024)).astype(np.int32)
+    attr = rs.randn(16, 512).astype(np.float32)
+    m = packed.min(axis=0, keepdims=True)
+    got = pp.p5_onehot_gather(torch.from_numpy(packed), torch.from_numpy(m),
+                              torch.from_numpy(attr)).numpy()
+    np.testing.assert_array_equal(got, attr[:, np.argmin(packed, axis=0)])
+
+
+@pytest.mark.parametrize("case", [_p1, _p2, _p3, _p4, _p5],
+                         ids=["p1", "p2", "p3", "p4", "p5"])
+def test_probe_matches_reference(interpret, proto, case):
+    case(proto)
+
+
+def test_p1_lanes_die_in_different_rounds():
+    """A seeded x: the loop runs until the LAST lane dies, and every lane's
+    carries go on updating until then (the reference's loop body masks only
+    `alive`)."""
+    x = torch.from_numpy(np.random.RandomState(7).uniform(
+        0.0, 40.0, (8, 128)).astype(np.float32))
+    out, rounds = pp.p1_while(x)
+    n = int(rounds)
+    assert n == int(np.ceil(50.0 - float(x.min()))) and 10 < n <= 50
+    a, b = x.double().numpy(), 2.0 * x.double().numpy()
+    for _ in range(n):
+        a = a + 1.0
+        b = b * 1.01 + a * 0.001
+    np.testing.assert_allclose(out.numpy(), b + n, rtol=1e-5)
+
+
+def test_p4_p5_ties():
+    """P4: the lowest row wins an exact tie.  P5: tied rows sum, as the
+    one-hot product does."""
+    t = 1.0 + np.random.RandomState(2).rand(64, 128).astype(np.float32)
+    t[40, 5] = t[9, 5] = 0.5
+    m, row = pp.p4_min(torch.from_numpy(t))
+    assert float(m[0, 5]) == 0.5 and int(row[0, 5]) == 9
+    rs = np.random.RandomState(3)
+    packed = rs.randint(1, 1 << 20, (64, 128)).astype(np.int32)
+    packed[3, 7] = packed[50, 7] = 0
+    attr = rs.randn(16, 64).astype(np.float32)
+    got = pp.p5_onehot_gather(
+        torch.from_numpy(packed),
+        torch.from_numpy(packed.min(axis=0, keepdims=True)),
+        torch.from_numpy(attr)).numpy()
+    np.testing.assert_array_equal(got[:, 7], attr[:, 3] + attr[:, 50])
+    np.testing.assert_array_equal(got[:, 8], attr[:, packed[:, 8].argmin()])
+
+
+# --- V1-V3: the tool's kernel factories at (256, 1024), 3 rounds -------------
+
+
+def _inputs(vpu, dtype=np.float32):
+    rs = np.random.RandomState(11)
+    g = (rs.rand(vpu.S, 8) + 1.0).astype(dtype)
+    r = rs.rand(8, vpu.R).astype(dtype)
+    return g, r
+
+
+def _reference(vpu, kernel, g, r):
+    return np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((1, vpu.R), jnp.float32),
+        interpret=True)(jnp.asarray(g), jnp.asarray(r)))
+
+
+def _clear10(t):
+    """float32 with its low 10 mantissa bits cleared: the reference's key."""
+    return (t.view(np.int32) & ~np.int32(1023)).view(np.float32)
+
+
+def _v1(vpu):
+    g, r = _inputs(vpu)
+    want = _reference(vpu, vpu.sweep_kernel(jnp.float32), g, r)
+    got = vp.v1_sweep(torch.from_numpy(g), torch.from_numpy(r), 3).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def _v2_f32(vpu):
+    g, r = _inputs(vpu)
+    want = _reference(vpu, vpu.fma_kernel(jnp.float32), g, r)
+    got = vp.v2_fma(torch.from_numpy(g), torch.from_numpy(r), 3).numpy()
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def _v2_bf16(vpu):
+    g, r = _inputs(vpu)
+    tg = torch.from_numpy(g).to(torch.bfloat16)
+    tr = torch.from_numpy(r).to(torch.bfloat16)
+    want = _reference(vpu, vpu.fma_kernel(jnp.bfloat16),
+                      jnp.asarray(g).astype(jnp.bfloat16),
+                      jnp.asarray(r).astype(jnp.bfloat16))
+    got = vp.v2_fma(tg, tr, 3).numpy()
+    # bfloat16 rounds after every operation, in another place in each
+    # framework.
+    np.testing.assert_allclose(got, want, rtol=5e-2)
+
+
+def _v3(vpu, variant):
+    g, r = _inputs(vpu)
+    want = _reference(vpu, vpu.sweep_full_dep(variant), g, r)
+    t, idx = vp.v3_sweep(torch.from_numpy(g), torch.from_numpy(r), 3, variant)
+    assert idx.dtype == torch.int32
+    # A ray that hits nothing is NaN on both sides (20 of the 1,024 "prod"
+    # rays), and -1 in the port's index.
+    miss = np.isnan(want)
+    assert miss.mean() < 0.05
+    np.testing.assert_array_equal(idx.numpy() == -1, miss)
+    # One step of the reference's 22-bit key is 2^-13 relative; the roots
+    # are differences of O(1) terms, each rounded in float32 (atol).
+    np.testing.assert_allclose(_clear10(t.numpy()), want, rtol=2.5e-4,
+                               atol=2e-6)
+    # The index against the argmin of the plain planes, made here in
+    # float64 from the same inputs.
+    g64, r64 = g.astype(np.float64), r.astype(np.float64)
+    oc = [r64[k][None, :] - g64[:, k][:, None] for k in range(3)]
+    hb = sum(oc[k] * r64[3 + k][None, :] for k in range(3))
+    disc = hb * hb - (sum(c * c for c in oc) - g64[:, 3][:, None])
+    with np.errstate(invalid="ignore"):
+        sq = disc if variant == "nosqrt" else np.sqrt(disc)
+        rn = -hb - sq
+        tn = np.where(rn > 1e-3, rn, sq - hb)
+        planes = np.where(tn > 1e-3, tn, np.inf)
+    same = (idx.numpy() == planes.argmin(axis=0))[~miss]
+    assert same.mean() >= 0.995, f"{(~same).sum()} columns differ"
+
+
+@pytest.mark.parametrize("case", [
+    _v1, _v2_f32, _v2_bf16, functools.partial(_v3, variant="prod"),
+    functools.partial(_v3, variant="nosqrt")],
+    ids=["v1", "v2_f32", "v2_bf16", "v3_prod", "v3_nosqrt"])
+def test_rate_probe_matches_reference(monkeypatch, vpu, case):
+    monkeypatch.setattr(vpu, "ITERS", 3)
+    case(vpu)
+
+
+def test_v3_variants_agree_where_they_must():
+    """"smem" is "prod"; "nobranch" differs from "prod" only in how the root
+    is rounded; a ray that hits nothing gives (NaN, -1)."""
+    rs = np.random.RandomState(5)
+    g = torch.from_numpy((rs.rand(64, 8) + 1.0).astype(np.float32))
+    r = torch.from_numpy(rs.rand(8, 256).astype(np.float32))
+    t, idx = vp.v3_sweep(g, r, 2, "prod")
+    t2, idx2 = vp.v3_sweep(g, r, 2, "smem")
+    torch.testing.assert_close(t2, t, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(idx, idx2) and bool((idx >= 0).any())
+    t3, idx3 = vp.v3_sweep(g, r, 2, "nobranch")
+    # sqrt(disc) against disc * rsqrt(disc): an ulp of the O(1) root.
+    torch.testing.assert_close(t3, t, rtol=1e-5, atol=1e-6, equal_nan=True)
+    assert float((idx3 != idx).float().mean()) <= 0.005
+    far = g.clone()
+    far[:, :3] += 1e3
+    away = r.clone()
+    away[3:6] = -away[3:6] - 0.1
+    t, idx = vp.v3_sweep(far, away, 2)
+    assert bool(torch.isnan(t).all()) and bool((idx == -1).all())
+
+
+# --- what the wrappers refuse -------------------------------------------------
+
+
+def _bad_p1():
+    return [lambda: pp.p1_while(torch.zeros(8, 128, dtype=torch.float64)),
+            lambda: pp.p1_while(torch.zeros(4, 128)),
+            lambda: pp.p1_while(torch.zeros(128, 8).T),
+            lambda: pp.p1_while(np.zeros((8, 128), np.float32))]
+
+
+def _bad_p2():
+    return [lambda: pp.p2_dot(torch.zeros(64, 16).half(), torch.zeros(16, 64)),
+            lambda: pp.p2_dot(torch.zeros(60, 16), torch.zeros(16, 64)),
+            lambda: pp.p2_dot(torch.zeros(64, 16), torch.zeros(32, 64)),
+            lambda: pp.p2_dot(torch.zeros(16, 64).T, torch.zeros(16, 64))]
+
+
+def _bad_p3():
+    return [lambda: pp.p3_reshape(torch.zeros(8, 128, dtype=torch.int32)),
+            lambda: pp.p3_reshape(torch.zeros(8, 64)),
+            lambda: pp.p3_reshape(torch.zeros(8, 256)[:, ::2])]
+
+
+def _bad_p4():
+    return [lambda: pp.p4_min(torch.zeros(8, 128, dtype=torch.float64)),
+            lambda: pp.p4_min(torch.zeros(8, 100)),
+            lambda: pp.p4_min(torch.zeros(128, 8).T)]
+
+
+def _bad_p5():
+    p = torch.zeros(8, 128, dtype=torch.int32)
+    m = torch.zeros(1, 128, dtype=torch.int32)
+    a = torch.zeros(16, 8)
+    return [lambda: pp.p5_onehot_gather(p.long(), m, a),
+            lambda: pp.p5_onehot_gather(p, m[0], a),
+            lambda: pp.p5_onehot_gather(p, m, torch.zeros(8, 8)),
+            lambda: pp.p5_onehot_gather(p, m, torch.zeros(8, 16).T),
+            lambda: pp.p5_onehot_gather(
+                torch.zeros(800, 128, dtype=torch.int32), m,
+                torch.zeros(16, 800))]
+
+
+def _bad_v(fn, **kw):
+    g, r = torch.ones(4, 8), torch.ones(8, 16)
+    return [lambda: fn(g.double(), r, 1, **kw),
+            lambda: fn(g[:, :4], r, 1, **kw),
+            lambda: fn(g, torch.ones(16, 8).T, 1, **kw),
+            lambda: fn(g, r, -1, **kw)]
+
+
+def _bad_v2():
+    return _bad_v(vp.v2_fma) + [
+        lambda: vp.v2_fma(torch.ones(4, 8).bfloat16(),
+                          torch.ones(8, 15).bfloat16(), 1),
+        lambda: vp.v2_fma(torch.ones(4, 8).bfloat16(), torch.ones(8, 16), 1)]
+
+
+def _bad_v3():
+    return _bad_v(vp.v3_sweep) + [
+        lambda: vp.v3_sweep(torch.ones(4, 8), torch.ones(8, 16), 0),
+        lambda: vp.v3_sweep(torch.ones(4, 8), torch.ones(8, 16), 1, "fast")]
+
+
+@pytest.mark.parametrize("cases", [
+    _bad_p1, _bad_p2, _bad_p3, _bad_p4, _bad_p5,
+    functools.partial(_bad_v, vp.v1_sweep), _bad_v2, _bad_v3],
+    ids=["p1", "p2", "p3", "p4", "p5", "v1", "v2", "v3"])
+def test_wrapper_refuses_wrong_operands(cases):
+    """A wrong dtype, shape or a non-contiguous tensor raises; nothing is
+    converted behind the caller's back."""
+    for call in cases():
+        with pytest.raises((TypeError, ValueError)):
+            call()
