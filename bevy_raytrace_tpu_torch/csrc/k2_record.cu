@@ -57,10 +57,15 @@
 // padding, skip_dead_tiles, the bit-mask words and the SMEM worklist.
 //
 // What bounds it on an H100: fp32 issue in the sphere loop and divergence
-// between the paths of a warp, as for K1.  The residual stores are 2 (int16)
-// or 4 (int32) bytes per (sample, bounce, pixel), written with consecutive
-// threads on consecutive pixels, so each warp store is one coalesced
-// transaction; at 1200x800x256x8 that is 3.9 GB of int16, written once.
+// between the paths of a warp, as for K1.  So the loop takes the root only
+// where the discriminant allows a hit (test_sphere: an IEEE sqrtf on every
+// test cost 1.33x in the rate probe V3, PERF.md) and reads the table from
+// shared memory, staged once a block (V3: 1.30x over __ldg); the
+// arithmetic is unchanged, so image and residuals keep their bits.  The
+// residual stores are 2 (int16) or 4 (int32) bytes per (sample, bounce,
+// pixel), written with consecutive threads on consecutive pixels, so each
+// warp store is one coalesced transaction; at 1200x800x256x8 that is 3.9 GB
+// of int16, written once.
 
 #include <cuda_runtime.h>
 
@@ -82,7 +87,15 @@ struct Nearest {
 // One ray-sphere test of the expanded quadratic against row i, g =
 // geom[i], folded into the nearest hit: strict <, so the first row visited
 // wins an exact tie.  `tn != bt` keeps a row that ties the winner exactly
-// from becoming its runner-up.
+// from becoming its runner-up.  The root is taken only where the
+// discriminant can give a hit: `disc >= 0`, so a tangent ray (disc == 0,
+// sq = 0) is a hit, as in the TPU kernel and the twin, which take sqrt of
+// every disc; a NaN or negative disc would give a NaN root that fails every
+// compare, so skipping it changes no bit.  (K1's sweep tests disc > 0 and
+// treats a tangency as a miss: the reference K1's rule, not K2's.)  The
+// update is nested ifs: as one joint condition nvcc compiled K1's sweep
+// 1.44-1.58x slower (PERF.md).  The runner-up compares exist only in the
+// RECORD == 2 instantiation.
 template <int RECORD>
 __device__ __forceinline__ void test_sphere(const float4 g, int i,
                                             const float o[3], const float d[3],
@@ -93,29 +106,41 @@ __device__ __forceinline__ void test_sphere(const float4 g, int i,
   const float half_b = o_dot_d - c_dot_d;
   const float cq = o2 - 2.0f * o_dot_c + g.w;
   const float disc = half_b * half_b - cq;
-  const float sq = sqrtf(disc);  // NaN on a miss: every compare fails
-  const float rn = -half_b - sq;
-  const float tn = rn > t_min ? rn : -half_b + sq;
-  const bool better = tn > t_min && tn < nh.bt;
-  if (RECORD == 2) {
-    if (better) {
-      nh.bt2 = nh.bt;
-      nh.bidx2 = nh.bidx;
-    } else if (tn > t_min && tn < nh.bt2 && tn != nh.bt) {
-      nh.bt2 = tn;
-      nh.bidx2 = i;
+  if (disc >= 0.f) {
+    const float sq = sqrtf(disc);
+    const float rn = -half_b - sq;
+    const float tn = rn > t_min ? rn : -half_b + sq;
+    if (tn > t_min) {
+      if (tn < nh.bt) {
+        if (RECORD == 2) {
+          nh.bt2 = nh.bt;
+          nh.bidx2 = nh.bidx;
+        }
+        nh.bt = tn;
+        nh.bidx = i;
+      } else if (RECORD == 2) {
+        if (tn < nh.bt2 && tn != nh.bt) {
+          nh.bt2 = tn;
+          nh.bidx2 = i;
+        }
+      }
     }
   }
-  if (better) {
-    nh.bt = tn;
-    nh.bidx = i;
-  }
+}
+
+// A table row: from shared memory (SMEM, staged once a block) or through
+// the read-only cache.
+template <bool SMEM>
+__device__ __forceinline__ float4 row4(const float4* __restrict__ p, int i) {
+  return SMEM ? p[i] : __ldg(p + i);
 }
 
 // geom[i] = (cx, cy, cz, |c|^2 - r^2); attr[2i] = (1/r, albedo r, g, b),
 // attr[2i+1] = (kind, fuzz, ior, 0).  CLUSTERED: rows in the plan's order,
 // bounds [n_clusters] float4, members [n_spheres] row -> scene index.
-template <typename ResT, int RECORD, bool CLUSTERED>
+// SMEM: geom (and, CLUSTERED, bounds after it) is staged into dynamic
+// shared memory before any thread leaves, and the loop reads it there.
+template <typename ResT, int RECORD, bool CLUSTERED, bool SMEM>
 __global__ void __launch_bounds__(kThreads)
     k2_record_kernel(const float4* __restrict__ geom,
                      const float4* __restrict__ attr, int n_spheres,
@@ -128,6 +153,18 @@ __global__ void __launch_bounds__(kThreads)
                      ResT* __restrict__ res2, uint32_t seed,
                      uint32_t sample_base, int spp, int max_depth, float t_min,
                      float t_max, int width, int height) {
+  extern __shared__ float4 staged[];
+  if (SMEM) {
+    for (int j = threadIdx.x; j < n_spheres; j += kThreads)
+      staged[j] = __ldg(geom + j);
+    if (CLUSTERED) {
+      for (int j = threadIdx.x; j < n_clusters; j += kThreads)
+        staged[n_spheres + j] = __ldg(bounds + j);
+    }
+    __syncthreads();
+  }
+  const float4* rows = SMEM ? staged : geom;
+  const float4* bnds = SMEM ? staged + n_spheres : bounds;
   const int i_loc = blockIdx.x * blockDim.x + threadIdx.x;
   if (i_loc >= n_pix) return;
   const brt::Cam c = brt::load_cam(cam_in);
@@ -164,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
       Nearest nh = {t_max, t_max, -1, -1};
       if (CLUSTERED) {
         for (int ci = 0; ci < n_clusters; ++ci) {
-          const float4 bs = __ldg(bounds + ci);
+          const float4 bs = row4<SMEM>(bnds, ci);
           const float c_dot_d = bs.x * d[0] + bs.y * d[1] + bs.z * d[2];
           const float o_dot_c = o[0] * bs.x + o[1] * bs.y + o[2] * bs.z;
           const float hb = o_dot_d - c_dot_d;
@@ -174,13 +211,13 @@ __global__ void __launch_bounds__(kThreads)
           const int lo = ci * cluster_size;
           const int hi = min(lo + cluster_size, n_spheres);
           for (int i = lo; i < hi; ++i)
-            test_sphere<RECORD>(__ldg(geom + i), i, o, d, o_dot_d, o2, t_min,
-                                nh);
+            test_sphere<RECORD>(row4<SMEM>(rows, i), i, o, d, o_dot_d, o2,
+                                t_min, nh);
         }
       } else {
         for (int i = 0; i < n_spheres; ++i)
-          test_sphere<RECORD>(__ldg(geom + i), i, o, d, o_dot_d, o2, t_min,
-                              nh);
+          test_sphere<RECORD>(row4<SMEM>(rows, i), i, o, d, o_dot_d, o2,
+                              t_min, nh);
       }
       const float bt = nh.bt;
       const int bidx = nh.bidx;
@@ -205,7 +242,7 @@ __global__ void __launch_bounds__(kThreads)
         continue;
       }
       // ---- hit frame and shading -----------------------------------------
-      const float4 g = __ldg(geom + bidx);
+      const float4 g = row4<SMEM>(rows, bidx);
       const float4 a0 = __ldg(attr + 2 * bidx);
       const float4 a1 = __ldg(attr + 2 * bidx + 1);
       const float h[3] = {o[0] + bt * d[0], o[1] + bt * d[1], o[2] + bt * d[2]};
@@ -248,23 +285,32 @@ __global__ void __launch_bounds__(kThreads)
   img[3 * i_loc + 2] = acc_b / fspp;
 }
 
-template <typename ResT, int RECORD, bool CLUSTERED>
+template <typename ResT, int RECORD, bool CLUSTERED, bool SMEM>
 int launch(const void* geom, const void* attr, int n_spheres,
            const void* bounds, const void* members, int n_clusters,
            int cluster_size, const void* cam,
            int pixel_base, int n_pix, void* img, void* res, void* res2,
            unsigned int seed,
            unsigned int sample_base, int spp, int max_depth, float t_min,
-           float t_max, int width, int height, cudaStream_t stream) {
+           float t_max, int width, int height, size_t smem,
+           cudaStream_t stream) {
+  const auto kernel = k2_record_kernel<ResT, RECORD, CLUSTERED, SMEM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int blocks = (n_pix + kThreads - 1) / kThreads;
-  k2_record_kernel<ResT, RECORD, CLUSTERED><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const float4*>(geom), static_cast<const float4*>(attr),
-      n_spheres, static_cast<const float4*>(bounds),
-      static_cast<const int*>(members), n_clusters, cluster_size,
-      static_cast<const float*>(cam), pixel_base, n_pix,
-      static_cast<float*>(img), static_cast<ResT*>(res),
-      static_cast<ResT*>(res2), seed, sample_base, spp, max_depth, t_min,
-      t_max, width, height);
+  k2_record_kernel<ResT, RECORD, CLUSTERED, SMEM>
+      <<<blocks, kThreads, smem, stream>>>(
+          static_cast<const float4*>(geom), static_cast<const float4*>(attr),
+          n_spheres, static_cast<const float4*>(bounds),
+          static_cast<const int*>(members), n_clusters, cluster_size,
+          static_cast<const float*>(cam), pixel_base, n_pix,
+          static_cast<float*>(img), static_cast<ResT*>(res),
+          static_cast<ResT*>(res2), seed, sample_base, spp, max_depth, t_min,
+          t_max, width, height);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,7 +324,10 @@ int launch(const void* geom, const void* attr, int n_spheres,
 // bounds != nullptr selects the cluster-culled loop: geom/attr rows are then
 // in the plan's order, bounds is [n_clusters] float4, members [n_spheres]
 // int32 (row -> scene index) and cluster_size >= 1 the rows per cluster;
-// otherwise the three are unused.
+// otherwise the three are unused.  The sphere rows (and bounds) are staged
+// in shared memory when they fit what a block may take on the device (16
+// bytes a row: ~14,500 rows on an H100), else read through the read-only
+// cache: a size path, both the kernel.
 // Returns the launch's cudaError_t, or cudaErrorInvalidValue for arguments
 // it does not take; the kernel itself runs asynchronously.
 extern "C" int brt_k2_record(const void* geom, const void* attr,
@@ -296,19 +345,35 @@ extern "C" int brt_k2_record(const void* geom, const void* attr,
   const bool clustered = bounds != nullptr;
   if (clustered && (members == nullptr || n_clusters < 1 || cluster_size < 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t staged = sizeof(float4) *
+      (static_cast<size_t>(n_spheres) + (clustered ? n_clusters : 0));
+  const bool smem = staged <= static_cast<size_t>(optin);
+  const size_t smem_bytes = smem ? staged : 0;
 #define BRT_K2_ARGS                                                        \
   geom, attr, n_spheres, bounds, members, n_clusters, cluster_size, cam,   \
       pixel_base, n_pix, img, res, res2, seed, sample_base, spp, max_depth, \
-      t_min, t_max, width, height, st
+      t_min, t_max, width, height, smem_bytes, st
+#define BRT_K2_LAUNCH(T, R, C)                                      \
+  return smem ? launch<T, R, C, true>(BRT_K2_ARGS)                  \
+              : launch<T, R, C, false>(BRT_K2_ARGS)
 #define BRT_K2_DISPATCH(T, R)                                   \
-  return clustered ? launch<T, R, true>(BRT_K2_ARGS)            \
-                   : launch<T, R, false>(BRT_K2_ARGS)
+  do {                                                          \
+    if (clustered) BRT_K2_LAUNCH(T, R, true);                   \
+    BRT_K2_LAUNCH(T, R, false);                                 \
+  } while (0)
   if (record == 0) BRT_K2_DISPATCH(int16_t, 0);
   if (res_bytes == 2 && record == 1) BRT_K2_DISPATCH(int16_t, 1);
   if (res_bytes == 2 && record == 2) BRT_K2_DISPATCH(int16_t, 2);
   if (res_bytes == 4 && record == 1) BRT_K2_DISPATCH(int32_t, 1);
   if (res_bytes == 4 && record == 2) BRT_K2_DISPATCH(int32_t, 2);
 #undef BRT_K2_DISPATCH
+#undef BRT_K2_LAUNCH
 #undef BRT_K2_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,6 +17,13 @@ RNG counters and camera rays come from the absolute pixel ids, and the
 returned cotangents are the stripe's partial sums (`inverse/shard_grad.py`
 all-reduces them).  The TPU's bf16 limb split and one-hot MXU contraction do
 not exist here: rows are read and cotangents added by index.
+
+Table modes (`table_plan`, chosen by the sphere count alone): each block of
+the kernel keeps a float64 copy of the table's 9 gradient columns in shared
+memory and flushes it once ("shared"), unless that copy is larger than a
+block may hold on the device, ~3,157 rows on an H100; then the adds go
+straight to the output ("global").  Both are the kernel, counted apart
+(`replay_grad.launches_global`).
 """
 
 from __future__ import annotations
@@ -37,6 +44,21 @@ from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 # The deepest path K3 replays: its per-thread state array holds this many
 # bounces (csrc/k3_replay_grad.cu kMaxDepth).
 MAX_DEPTH = 16
+# Bytes of a block's table per sphere row: 9 float64 gradient columns.
+ROW_BYTES = 9 * 8
+TABLE_MODES = ("global", "shared")
+
+
+def table_plan(n_rows: int, limit_bytes: int):
+    """K3's table mode for a table of `n_rows` spheres -> (mode, bytes of
+    dynamic shared memory a block takes): ("shared", n_rows * ROW_BYTES)
+    when that fits `limit_bytes` (what a block may take for its table on the
+    device, `brt_k3_table_bytes_limit`), else ("global", 0)."""
+    if n_rows < 0 or limit_bytes < 0:
+        raise ValueError(f"n_rows={n_rows} and limit_bytes={limit_bytes} "
+                         f"must be >= 0")
+    nbytes = n_rows * ROW_BYTES
+    return ("shared", nbytes) if nbytes <= limit_bytes else ("global", 0)
 
 
 def _check_operands(table, cam16, config: RenderConfig, res, g,
@@ -103,10 +125,31 @@ def _k3_launcher(defines: tuple = ()):
     fn = lib.brt_k3_replay_grad
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)
-    fn.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, i32, i32, i32, u32, u32,
-                   i32, f32, f32, f32, i32, i32, vp]
+    fn.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, i32,
+                   u32, u32, i32, f32, f32, f32, i32, i32, vp]
     fn.restype = i32
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _table_limit(index: int) -> int:
+    """Bytes of shared memory a K3 block may take for its table on CUDA
+    device `index`."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = build.load("k3_replay_grad").brt_k3_table_bytes_limit(
+            ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"K3's shared-memory query failed with "
+                           f"cudaError_t {err}")
+    return out.value
+
+
+def _table_mode(table) -> str:
+    """`table_plan`'s mode for a CUDA table on its device."""
+    index = table.device.index
+    return table_plan(table.shape[0], _table_limit(
+        torch.cuda.current_device() if index is None else index))[0]
 
 
 def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
@@ -125,10 +168,11 @@ def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
     stripe cotangent.
 
     Returns (d_table [S, 11], d_cam [16]) float32, d_cam in `pack()`'s
-    layout; in stripe mode the stripe's partial sums.  CUDA tensors launch the kernel (and count one in
-    `replay_grad.launches`); CPU tensors run `replay_grad_plain`; any other
-    device raises.  Paths deeper than MAX_DEPTH bounces raise on every
-    device."""
+    layout; in stripe mode the stripe's partial sums.  CUDA tensors launch
+    the kernel (and count one in `replay_grad.launches`, and in
+    `replay_grad.launches_global` when the table is too large for a block's
+    shared memory); CPU tensors run `replay_grad_plain`; any other device
+    raises.  Paths deeper than MAX_DEPTH bounces raise on every device."""
     base, n = _check_operands(table, cam16, config, res, g, sample_base,
                               res2, pixel_base, num_local)
     if config.max_depth > MAX_DEPTH:
@@ -140,20 +184,29 @@ def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
                                  sample_base, res2, pixel_base, num_local)
     if device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA (or its twin on CPU), not {device}")
+    mode = _table_mode(table)
     out = _launch(_k3_launcher(), table, cam16, config, res, g, frame,
-                  sample_base, res2, base, n)
+                  sample_base, res2, base, n, mode)
     replay_grad.launches += 1
+    replay_grad.launches_global += int(mode == "global")
     return out
 
 
 replay_grad.launches = 0
+replay_grad.launches_global = 0
 
 
 def _launch(launch, table, cam16, config: RenderConfig, res, g, frame: int,
-            sample_base: int, res2, pixel_base: int = 0, num_local=None):
+            sample_base: int, res2, pixel_base: int = 0, num_local=None,
+            table_mode: str = "global"):
     """Runs `launch` (a `_k3_launcher`) on checked CUDA operands; the
     pixels are [pixel_base, pixel_base + num_local), the whole frame when
-    `num_local` is None."""
+    `num_local` is None.  `table_mode` is one of TABLE_MODES: `replay_grad`
+    passes `table_plan`'s, the checks on the card force one to hold the
+    two against each other."""
+    if table_mode not in TABLE_MODES:
+        raise ValueError(f"table_mode must be one of {TABLE_MODES}, got "
+                         f"{table_mode!r}")
     n = config.num_pixels if num_local is None else num_local
     device = table.device
     table, cam16 = table.detach(), cam16.detach()
@@ -167,7 +220,8 @@ def _launch(launch, table, cam16, config: RenderConfig, res, g, frame: int,
         err = launch(table.data_ptr(), cam16.data_ptr(), res.data_ptr(),
                      res2.data_ptr() if edge else 0,
                      2 if res.dtype == torch.int16 else 4, g.data_ptr(),
-                     d_tbl.data_ptr(), d_cam.data_ptr(), pixel_base, n,
+                     d_tbl.data_ptr(), d_cam.data_ptr(), table.shape[0],
+                     TABLE_MODES.index(table_mode), pixel_base, n,
                      config.samples_per_pixel, frame_seed(config, frame),
                      sample_base, config.max_depth, config.t_min,
                      config.edge_softness,

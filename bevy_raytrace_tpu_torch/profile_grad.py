@@ -2,7 +2,7 @@
 bounds K3, and the forward kernels side by side.
 
     python3 -m bevy_raytrace_tpu_torch.profile_grad [--out DIR] [--reps N]
-        [--parts k3,forward,profile]
+        [--parts k3,forward,profile] [--k3-variants kernel,...]
 
 1. Profile: `torch.profiler` over one step of each gradient shape that
    `chip_smoke.py` drives, after one warm-up step: the `cli inverse` step
@@ -16,26 +16,32 @@ bounds K3, and the forward kernels side by side.
    wall ms (host clock to synchronize), the device time of each kernel, the
    device's idle share (1 - the kernels' sum / wall) and the peak device
    memory.
-2. K3 probes: the kernel against builds of the same source with the d_table
-   atomics in float32, with no d_table atomics, and with __launch_bounds__
-   asking for 8 blocks per SM (csrc/k3_replay_grad.cu, "Measurement
-   probes"), all on the same K2 residuals and cotangent, interleaved
-   (A B C D, A B C D, ...) and timed with CUDA events, at the gradient
-   bench (rtiow, 400x300x16, edge 0.01), the inverse step (config1,
-   1200x800x64, edge 0.01) and a flagship slice (rtiow, 1200x800x64,
-   edge 0).  Each shape also reports the hit bounces per path and the share
-   of them on the most-hit sphere, which set the atomics' count and
-   contention.
+2. K3 probes: the kernel (`replay_grad`) against its global table mode
+   forced, and against builds of the same source for the A/B of its design
+   steps (csrc/k3_replay_grad.cu, "Measurement probes"): without the warp
+   aggregation (step_a), with neither persistence nor aggregation nor a
+   block table (lane_atomics: every lane's float64 atomics into d_table,
+   one block per 128 paths) and with no table adds at all
+   (no_table_atomics, the floor), all on the
+   same K2 residuals and cotangent, interleaved (A B C D, A B C D, ...) and
+   timed with CUDA events, at the gradient bench (rtiow, 400x300x16, edge
+   0.01), the inverse step (config1, 1200x800x64, edge 0.01) and a
+   flagship slice (rtiow, 1200x800x64, edge 0).  Each shape also reports
+   the hit bounces per path and the share of them on the most-hit sphere.
+   `--k3-variants kernel` times `replay_grad` alone, which any commit of
+   the port has: run this file from another tree for a same-call A/B.
 3. Forward kernels on the same paths: K1 (the forward render, identity
-   lanes), K2 (the recorder on the expanded quadratic) and K4 (the recorder
-   on K1's dense sweep), each recorder with and without the runner-up, and
-   K2 with the cluster-culled traversal at cluster sizes 6, 12, 24 and 48,
-   interleaved and timed with CUDA events at the gradient bench, a
-   32-sample slice of the flagship (rtiow, 1200x800, depth 8) and the
-   reference frame (reference_scene, 1920x1080, 64 spp, depth 3), with the
-   executed rounds per path from K1's `len` output and a SHA-256 of each
-   kernel's outputs (two builds of a kernel that print the same digest
-   computed the same bits).
+   lanes), K2 (the recorder on the expanded quadratic: brute force and
+   culled at cluster size 12; value only, winners, winners + runner-up)
+   and K4 (the recorder on K1's dense sweep, with and without the
+   runner-up), interleaved and timed with CUDA events at the gradient
+   bench (also K2 culled at cluster sizes 6, 24 and 48), the flagship
+   gradient's 2-sample slice (rtiow, 1200x800, samples 128-129, depth 8),
+   the `cli render` frame (rtiow, 1200x800, 64 spp, depth 8) and the
+   reference frame (reference_scene, 1920x1080, 64 spp, depth 3; value
+   only), with the executed rounds per path from K1's `len` output and a
+   SHA-256 of each kernel's outputs (two builds of a kernel that print the
+   same digest computed the same bits).
 
 Prints a line per measurement, then the card's name and power limit, then
 one JSON object with every number.  `--out DIR` also writes the profiler
@@ -54,12 +60,16 @@ import subprocess
 import sys
 import time
 
-# K3 builds compared by the probes: name -> nvcc -D defines.
+# K3 variants compared by the probes: name -> (nvcc -D defines, table mode;
+# None = the mode `replay_grad` picks).  "kernel" is timed through
+# `replay_grad` itself, so that `--k3-variants kernel` also times a tree
+# whose K3 has no probes (an A/B against another commit).
 VARIANTS = {
-    "kernel": (),
-    "f32_atomics": ("BRT_K3_TABLE_ADD=32",),
-    "no_table_atomics": ("BRT_K3_TABLE_ADD=0",),
-    "min_blocks_8": ("BRT_K3_MIN_BLOCKS=8",),
+    "kernel": ((), None),
+    "global_table": ((), "global"),
+    "step_a": (("BRT_K3_STEP=1",), None),
+    "lane_atomics": (("BRT_K3_STEP=0",), None),
+    "no_table_atomics": (("BRT_K3_TABLE_ADD=0",), None),
 }
 
 
@@ -202,9 +212,9 @@ def profile_steps(dev, out_dir):
     return res
 
 
-def k3_probes(dev, reps):
+def k3_probes(dev, reps, variants):
     """Part 2 -> {shape: {paths, hits_per_path, top_row_share, ms: {variant:
-    [ms, ...]}}, and the variants' ptxas lines."""
+    [ms, ...]}}}, and the variants' ptxas lines."""
     import numpy as np
     import torch
 
@@ -213,18 +223,17 @@ def k3_probes(dev, reps):
     from bevy_raytrace_tpu_torch.kernels import record as k2
     from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
 
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        list(pool.map(lambda d: build.load("k3_replay_grad", d),
-                      VARIANTS.values()))
+    builds = sorted({VARIANTS[v][0] for v in variants})
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda d: build.load("k3_replay_grad", d), builds))
     ptxas = {}
-    for v, defines in VARIANTS.items():
-        _, text = build.BUILD_LOG.get(build._key("k3_replay_grad", defines),
-                                      (0.0, ""))
+    for v in variants:
+        _, text = build.BUILD_LOG.get(
+            build._key("k3_replay_grad", VARIANTS[v][0]), (0.0, ""))
         ptxas[v] = [ln.strip() for ln in text.splitlines()
                     if "registers" in ln or "stack frame" in ln]
         for ln in ptxas[v]:
             log(f"[build] k3 {v}: {ln}")
-    launchers = {v: k3._k3_launcher(d) for v, d in VARIANTS.items()}
 
     rtiow = (scenes.rtiow_final_scene, scenes.rtiow_final_camera)
     config1 = (scenes.baseline_config1_scene, scenes.baseline_config1_camera)
@@ -254,17 +263,21 @@ def k3_probes(dev, reps):
         per_row = torch.bincount(hits, minlength=table.shape[0])
         stats = {"paths": paths, "hits_per_path": hits.numel() / paths,
                  "top_row_share": float(per_row.max()) / max(hits.numel(), 1),
-                 "ms": {v: [] for v in VARIANTS}}
+                 "ms": {v: [] for v in variants}}
         del hits, per_row
 
         def run(v):
-            return k3._launch(launchers[v], table, cam16, cfg, res, g, 1, 0,
-                              res2)
+            if v == "kernel":
+                return k3.replay_grad(table, cam16, cfg, res, g, 1, res2=res2)
+            defines, mode = VARIANTS[v]
+            return k3._launch(k3._k3_launcher(defines), table, cam16, cfg,
+                              res, g, 1, 0, res2,
+                              table_mode=mode or k3._table_mode(table))
 
-        for v in VARIANTS:  # warm-up
+        for v in variants:  # warm-up
             run(v)
         for _ in range(reps):
-            for v in VARIANTS:
+            for v in variants:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -288,7 +301,7 @@ def k3_probes(dev, reps):
 
 def forward_kernels(dev, reps):
     """Part 3 -> {shape: {spheres, paths, rounds_per_path, ms: {kernel:
-    [ms, ...]}}}."""
+    [ms, ...]}, sha256: {kernel: digest}}}."""
     import numpy as np
     import torch
 
@@ -300,19 +313,25 @@ def forward_kernels(dev, reps):
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
     rtiow = (scenes.rtiow_final_scene, scenes.rtiow_final_camera)
+    flagship = RenderConfig(width=1200, height=800, samples_per_pixel=64,
+                            max_depth=8)
+    # name -> (scene, camera), config, sample_base, record modes timed.
     shapes = {
         "grad_bench": (rtiow, RenderConfig(width=400, height=300,
                                            samples_per_pixel=16, max_depth=8,
-                                           edge_softness=0.01)),
-        "flagship_slice_32spp": (rtiow, RenderConfig(
-            width=1200, height=800, samples_per_pixel=32, max_depth=8)),
+                                           edge_softness=0.01), 0, 3),
+        "flagship_slice_2spp": (rtiow, flagship.replace(samples_per_pixel=2),
+                                128, 3),
+        "cli_frame": (rtiow, flagship, 0, 3),
         "reference_frame": ((scenes.reference_scene,
                              scenes.rtiow_final_camera),
                             RenderConfig(width=1920, height=1080,
-                                         samples_per_pixel=64, max_depth=3)),
+                                         samples_per_pixel=64, max_depth=3),
+                            0, 1),
     }
+    records = {0: "_value", 1: "_record", 2: "_record_second"}
     out = {}
-    for name, ((scene_fn, cam_fn), cfg) in shapes.items():
+    for name, ((scene_fn, cam_fn), cfg, sb, modes) in shapes.items():
         scene = scene_fn(device=dev)[0]
         cam = cam_fn(cfg.aspect, device=dev)
         table, cam16 = k2._operands(scene, cam)
@@ -322,21 +341,30 @@ def forward_kernels(dev, reps):
 
         def run_k1():
             return k1.render_lanes(geom, attr, cam16, pids,
-                                   frame_seed(cfg, 1), 0,
+                                   frame_seed(cfg, 1), sb,
                                    cfg.samples_per_pixel, cfg.max_depth,
                                    cfg.t_min, cfg.width, cfg.height)
 
         runs = {"k1": run_k1}
-        for label, fn in (("k2", k2.record_frame),
-                          ("k4", k4.sweep_record_frame)):
-            for second in (False, True):
-                runs[label + "_record" + "_second" * second] = (
-                    lambda fn=fn, second=second: fn(table, cam16, cfg, 1,
-                                                    record_second=second))
-        for size in (6, 12, 24, 48):
-            runs[f"k2_culled_L{size}_record"] = (
-                lambda plan=cluster_scene(scene, size): k2.record_frame(
-                    table, cam16, cfg, 1, clusters=plan))
+        plan = cluster_scene(scene, 12)
+        for r in range(modes):
+            kw = dict(sample_base=sb, with_residuals=r >= 1,
+                      record_second=r == 2)
+            runs["k2" + records[r]] = (
+                lambda kw=kw: k2.record_frame(table, cam16, cfg, 1, **kw))
+            runs["k2_culled_L12" + records[r]] = (
+                lambda kw=kw: k2.record_frame(table, cam16, cfg, 1,
+                                              clusters=plan, **kw))
+            if r >= 1:
+                runs["k4" + records[r]] = (
+                    lambda kw=kw: k4.sweep_record_frame(
+                        table, cam16, cfg, 1, sample_base=sb,
+                        record_second=kw["record_second"]))
+        if name == "grad_bench":
+            for size in (6, 24, 48):
+                runs[f"k2_culled_L{size}_record"] = (
+                    lambda plan=cluster_scene(scene, size): k2.record_frame(
+                        table, cam16, cfg, 1, clusters=plan))
         stats = {"spheres": scene.count, "paths": cfg.rays_per_frame,
                  "rounds_per_path": float(run_k1()[1][:cfg.num_pixels].sum())
                  / cfg.rays_per_frame,
@@ -362,7 +390,7 @@ def forward_kernels(dev, reps):
         base = float(np.median(stats["ms"]["k1"]))
         for k, ms in stats["ms"].items():
             med = float(np.median(ms))
-            log(f"[forward]   {k:22s} median {med:9.3f} ms ({med / base:6.3f} "
+            log(f"[forward]   {k:26s} median {med:9.3f} ms ({med / base:6.3f} "
                 f"x k1); outputs sha256 {stats['sha256'][k]}; runs "
                 f"{[round(m, 3) for m in ms]}")
         out[name] = stats
@@ -381,7 +409,14 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", default="k3,forward,profile",
                     help="comma list of the parts to run: k3 (its probes), "
                          "forward (K1, K2, K4 interleaved), profile")
+    ap.add_argument("--k3-variants", default=",".join(VARIANTS),
+                    help="comma list of the K3 variants to time, of "
+                         + ", ".join(VARIANTS))
     args = ap.parse_args(argv)
+    variants = args.k3_variants.split(",")
+    unknown = set(variants) - set(VARIANTS)
+    if unknown or "kernel" not in variants:
+        ap.error(f"--k3-variants must name 'kernel' and only {list(VARIANTS)}")
     parts = args.parts.split(",")
     if not torch.cuda.is_available():
         print("profile_grad: no CUDA device", file=sys.stderr)
@@ -391,7 +426,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     smi = smi_line()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
-    probes, ptxas = k3_probes(dev, args.reps) if "k3" in parts else ({}, {})
+    probes, ptxas = (k3_probes(dev, args.reps, variants) if "k3" in parts
+                     else ({}, {}))
     forward = forward_kernels(dev, args.reps) if "forward" in parts else {}
     prof = profile_steps(dev, args.out) if "profile" in parts else {}
     log(smi)

@@ -40,7 +40,16 @@ exit — if any phase fails:
      shape with edge_softness 0, K2 recording winners only and value only,
      and K3 without the silhouette term; and on a 2-sample slice of the
      flagship gradient (1200x800, samples 128-129 through sample_base), the
-     same three;
+     same three.  K3's table mode (its block-private table in shared memory,
+     or adds straight into d_table above what a block holds) is recorded
+     with each check; at the bench's shape the global mode is also forced
+     and held against the twin and the shared mode.  Then K2 and K3 on the
+     hot-row case (config1 at 1200x800, 2 samples, edge 0.01: nearly every
+     lane of a warp adds into one of 3 rows) and on 2,000 and 4,096 seeded
+     spheres at 320x240x4 (a 144 KB block table, against the global mode
+     too; K3's global table); K2 on a tangent ray (disc == 0 exactly:
+     a hit at every first bounce) and on 15,000 seeded spheres (rows read
+     from device memory, not staged);
  10. inverse rendering at the CLI's size (1200x800, 64 spp, depth 8,
      edge_softness 0.01, config1 perturbed as `cli inverse` does): 3 Adam
      steps with a checkpoint, resumed to 6 steps, and the step-3 checkpoint
@@ -49,7 +58,10 @@ exit — if any phase fails:
  11. the flagship gradient (1200x800, 256 spp, depth 8, rtiow_final, d
      mean(img^2) / d centers) unchunked and with grad_spp_chunk=64; finite
      and agreeing to rtol 2e-3;
- 12. K2's and K3's launch counts over phases 10-11 must be > 0;
+ 12. K2's and K3's launch counts over phases 10-11 must be > 0 (K3 in its
+     shared mode); then the gradient of the 4,096-sphere scene through
+     make_fast_renderer, counted (K2 1, K3 1 in its global mode) and held
+     against backward="torch" at rtol 2e-3;
  13. K4 against its plain twin at the gradient bench's shape (edge_softness
      0.01: winners + runner-up; 0: winners only) and on the 2-sample
      1200x800 slice through sample_base: image under parity.COMPILED, at
@@ -262,6 +274,28 @@ def kernel_entry(name, source, replaces, launches, ks, library_ms=None):
             "library_ms": library_ms, "checks": ks}
 
 
+def random_scene(n, seed=0):
+    """A seeded scene of `n` spheres on the card: the RTiOW ground and
+    n - 1 small spheres of mixed materials scattered over it, denser than
+    rtiow_final's (tables larger than a block's shared memory)."""
+    import numpy as np
+
+    from bevy_raytrace_tpu_torch.core.types import make_scene
+
+    rng = np.random.default_rng(seed)
+    m = n - 1
+    r = rng.uniform(0.05, 0.25, m)
+    xz = rng.uniform(-11.0, 11.0, (m, 2))
+    centers = np.concatenate([[[0.0, -1000.0, 0.0]],
+                              np.stack([xz[:, 0], r, xz[:, 1]], 1)])
+    return make_scene(
+        centers, np.concatenate([[1000.0], r]), np.arange(n),
+        np.concatenate([[[0.5, 0.5, 0.5]], rng.uniform(0.1, 0.9, (m, 3))]),
+        np.concatenate([[0], rng.choice(3, m, p=[0.7, 0.2, 0.1])]),
+        np.concatenate([[0.0], rng.uniform(0.0, 0.5, m)]),
+        np.full(n, 1.5))
+
+
 def gradient_phases(dev, smi):
     """Phases 7-12: K2 and K3, and the inverse-rendering path through them.
     Returns (K2's and K3's launch counts over the path, extra stats, and
@@ -275,6 +309,8 @@ def gradient_phases(dev, smi):
 
     from bevy_raytrace_tpu_torch import RenderConfig
     from bevy_raytrace_tpu_torch import scenes
+    from bevy_raytrace_tpu_torch.core.camera import Camera
+    from bevy_raytrace_tpu_torch.core.types import make_scene
     from bevy_raytrace_tpu_torch.inverse import (
         make_fast_renderer,
         optimize,
@@ -335,32 +371,59 @@ def gradient_phases(dev, smi):
                             int(with_residuals) + int(record_second))})
         return img, res, res2
 
-    def k3_check(label, table, cam16, cfg, res, res2, sample_base=0):
+    def cotangents_vs(got, want):
+        """grad_close of (d_table, d_cam) against `want`'s, both arrays to
+        rtol 2e-3 of the larger max-abs."""
+        glob = max(float(want[0].abs().max()), float(want[1].abs().max()))
+        return [grad_close(a.cpu(), b.cpu(), glob=glob)
+                for a, b in zip(got, want)]
+
+    def k3_check(label, table, cam16, cfg, res, res2, sample_base=0,
+                 against_global=False):
         """K3 vs its twin on recorded residuals with a seeded cotangent:
-        d_table and d_cam to rtol 2e-3 of the larger max-abs."""
+        d_table and d_cam to rtol 2e-3 of the larger max-abs.  The launch
+        takes the table mode replay_grad picks for this table; with
+        `against_global` the global mode is also forced on the same inputs
+        and held against the twin and against the picked mode."""
         g = torch.from_numpy(np.random.default_rng(0).standard_normal(
             (cfg.height, cfg.width, 3)).astype(np.float32)).to(dev)
-        ms, (d_tbl, d_cam) = cuda_ms(
+        mode = k3._table_mode(table)
+        ms, got = cuda_ms(
             lambda: k3.replay_grad(table, cam16, cfg, res, g, 1, sample_base,
                                    res2=res2), 3)
-        plain_ms, (p_tbl, p_cam) = cuda_ms(
+        plain_ms, want = cuda_ms(
             lambda: k3.replay_grad_plain(table, cam16, cfg, res, g, 1,
                                          sample_base, res2=res2), 1,
             warm=False)
-        glob = max(float(p_tbl.abs().max()), float(p_cam.abs().max()))
-        tbl_vs = grad_close(d_tbl.cpu(), p_tbl.cpu(), glob=glob)
-        cam_vs = grad_close(d_cam.cpu(), p_cam.cpu(), glob=glob)
-        log(f"[k3] {label}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms; "
-            f"d_table vs twin {tbl_vs}, d_cam vs twin {cam_vs}")
+        tbl_vs, cam_vs = cotangents_vs(got, want)
+        log(f"[k3] {label}: {mode} table, kernel {ms:.3f} ms, twin "
+            f"{plain_ms:.1f} ms; d_table vs twin {tbl_vs}, d_cam vs twin "
+            f"{cam_vs}")
         check(tbl_vs["ok"] and cam_vs["ok"],
               f"K3 {label}: cotangents disagree with the twin's (rtol 2e-3)")
-        checks["k3"].append({
-            "shape": label, "rel_err": [tbl_vs["rel_err"], cam_vs["rel_err"]],
+        entry = {
+            "shape": label, "mode": mode,
+            "rel_err": [tbl_vs["rel_err"], cam_vs["rel_err"]],
             "max_abs_err": max(tbl_vs["max_abs_err"], cam_vs["max_abs_err"]),
             "ms": ms, "plain_ms": plain_ms,
             **k3_bound(table.shape[0], cfg.num_pixels, cfg.samples_per_pixel,
                        cfg.max_depth, int((res >= 0).sum()),
-                       1 if res2 is None else 2)})
+                       1 if res2 is None else 2)}
+        if against_global:
+            glob_ms, forced = cuda_ms(lambda: k3._launch(
+                k3._k3_launcher(), table, cam16, cfg, res, g, 1, sample_base,
+                res2, table_mode="global"), 3)
+            vs_twin, vs_mode = cotangents_vs(forced, want), cotangents_vs(
+                forced, got)
+            log(f"[k3] {label}: global table forced {glob_ms:.3f} ms; vs "
+                f"twin {vs_twin}; vs the {mode} table {vs_mode}")
+            check(all(v["ok"] for v in vs_twin + vs_mode),
+                  f"K3 {label}: the global table disagrees with the twin or "
+                  f"the {mode} table")
+            entry["global_forced"] = {
+                "ms": glob_ms, "max_abs_err": max(
+                    v["max_abs_err"] for v in vs_twin + vs_mode)}
+        checks["k3"].append(entry)
 
     # The gradient bench's shape (400x300, 16 spp, depth 8, rtiow_final),
     # with edge_softness 0.01 (the inverse path's instantiations: runner-up
@@ -382,7 +445,8 @@ def gradient_phases(dev, smi):
     rep_vs = compare(rep.cpu().numpy(), img.cpu().numpy(), COMPILED)
     log(f"[k2] torch replay of the kernel's residuals vs its image {rep_vs}")
     check(rep_vs["ok"], f"replay does not reconstruct the K2 image {rep_vs}")
-    k3_check(f"{bench} edge 0.01", table, cam16, cfg, res, res2)
+    k3_check(f"{bench} edge 0.01", table, cam16, cfg, res, res2,
+             against_global=True)
     del res, res2
     _, res, _ = k2_check(f"{bench} record", table, cam16, cfg0, bench_rounds)
     k2_check(f"{bench} value only", table, cam16, cfg0, bench_rounds,
@@ -405,9 +469,67 @@ def gradient_phases(dev, smi):
     k3_check(f"{label} edge 0", sl_table, sl_cam16, sl, res, None, 128)
     del res
 
+    # Hot rows: config1 (2 spheres and the ground) at the `cli inverse`
+    # frame, 2 samples, edge 0.01: nearly every lane of a warp adds into one
+    # of 3 rows, the case K3's warp aggregation is for.
+    hot = sl.replace(edge_softness=0.01)
+    hot_scene = scenes.baseline_config1_scene()[0]
+    hot_cam = scenes.baseline_config1_camera(hot.aspect)
+    hot_table, hot_cam16 = k2._operands(hot_scene, hot_cam)
+    label = "config1 1200x800x2 depth 8 edge 0.01 (hot rows)"
+    _, res, res2 = k2_check(label, hot_table, hot_cam16, hot,
+                            k1_rounds(hot_scene, hot_cam, hot, 1),
+                            record_second=True)
+    k3_check(label, hot_table, hot_cam16, hot, res, res2)
+    del res, res2
+
+    # Large tables: 2,000 seeded spheres take a 144 KB block table (above
+    # the 48 KB a launch gets without asking), held against the global mode
+    # too; 4,096 are above a block's shared memory, so K3 takes its global
+    # table (and K2 stages 64 KB of rows).
+    small = RenderConfig(width=320, height=240, samples_per_pixel=4,
+                         max_depth=8, edge_softness=0.01)
+    big_cam = scenes.rtiow_final_camera(small.aspect)
+    for n, mode in ((2000, "shared"), (4096, "global")):
+        big_scene = random_scene(n)
+        big_table, big_cam16 = k2._operands(big_scene, big_cam)
+        label = f"random {n} spheres {small.width}x{small.height}x4 depth 8"
+        _, res, res2 = k2_check(label, big_table, big_cam16, small,
+                                k1_rounds(big_scene, big_cam, small, 1),
+                                record_second=True)
+        check(k3._table_mode(big_table) == mode,
+              f"a {n}-sphere table did not take K3's {mode} mode")
+        k3_check(label, big_table, big_cam16, small, res, res2,
+                 against_global=mode == "shared")
+        del res, res2
+
+    # K2 on its own edges: a tangent ray (disc == 0 exactly: every camera
+    # ray runs from (1, 0, 0) along (0, 0, -1), grazing the sphere at
+    # (0, 0, -5) of radius 1) is a hit at every first bounce; 15,000
+    # spheres (240,000 bytes of rows) are read from device memory.
+    tan = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=3)
+    tan_scene = make_scene([[0.0, 0.0, -5.0]], [1.0], [0], [[0.5, 0.6, 0.7]],
+                           [0], [0.0], [1.5])
+    tan_cam = Camera.from_packed(torch.tensor(
+        [1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0,
+         0.0, 1.0], device=dev))
+    tan_table, tan_cam16 = k2._operands(tan_scene, tan_cam)
+    _, res, _ = k2_check("tangent ray 64x32x2 depth 3", tan_table, tan_cam16,
+                         tan, k1_rounds(tan_scene, tan_cam, tan, 1),
+                         record_second=True)
+    check(bool((res[:, 0] == 0).all()), "K2 missed the tangent hit")
+    huge_scene = random_scene(15000, seed=1)
+    huge = RenderConfig(width=64, height=48, samples_per_pixel=2, max_depth=3)
+    huge_cam = scenes.rtiow_final_camera(huge.aspect)
+    huge_table, huge_cam16 = k2._operands(huge_scene, huge_cam)
+    k2_check("random 15000 spheres 64x48x2 depth 3", huge_table, huge_cam16,
+             huge, k1_rounds(huge_scene, huge_cam, huge, 1),
+             record_second=True)
+    del res, huge_table
+
     # ---- 10. inverse rendering at the CLI's size --------------------------
     k2.record_frame.launches = 0
-    k3.replay_grad.launches = 0
+    k3.replay_grad.launches = k3.replay_grad.launches_global = 0
     scene_bad, scene_true, problem = cli_inverse_problem(dev)
     inv_cfg = problem.config
     with tempfile.TemporaryDirectory() as tmp:
@@ -475,12 +597,40 @@ def gradient_phases(dev, smi):
     # ---- 12. launches -----------------------------------------------------
     k2_launches = k2.record_frame.launches
     k3_launches = k3.replay_grad.launches
+    k3_modes = {"shared": k3_launches - k3.replay_grad.launches_global,
+                "global": k3.replay_grad.launches_global}
     log(f"[launches] k2_record launches={k2_launches}, k3_replay_grad "
-        f"launches={k3_launches} over phases 10-11")
-    check(k2_launches > 0 and k3_launches > 0,
-          "K2 or K3 was not launched by the inverse-rendering path")
+        f"launches={k3_launches} ({k3_modes}) over phases 10-11")
+    check(k2_launches > 0 and k3_modes["shared"] > 0,
+          "K2 or K3 (shared table) was not launched by the inverse-rendering "
+          "path")
 
-    launches = {"k2": k2_launches, "k3": k3_launches}
+    # The gradient of a scene above a block's shared memory (the 4,096
+    # seeded spheres) through make_fast_renderer: K3's global table on the
+    # path, one launch of each kernel, held against backward="torch" (the
+    # torch replay of the same K2 residuals).
+    def big_grad(backward):
+        c = big_scene.centers.clone().requires_grad_(True)
+        img = make_fast_renderer(small, backward=backward)(
+            dataclasses.replace(big_scene, centers=c), big_cam, 1)
+        return torch.autograd.grad(torch.mean(img ** 2), c)[0]
+
+    k2.record_frame.launches = 0
+    k3.replay_grad.launches = k3.replay_grad.launches_global = 0
+    g_big = big_grad("kernel")
+    big_launches = (k2.record_frame.launches, k3.replay_grad.launches,
+                    k3.replay_grad.launches_global)
+    k3_modes["global"] += big_launches[2]
+    big_vs = grad_close(g_big.cpu(), big_grad("torch").cpu())
+    log(f"[big scene grad] {big_scene.count} spheres, {small.width}x"
+        f"{small.height}x{small.samples_per_pixel} depth {small.max_depth}: "
+        f"launches (K2, K3, K3 global) {big_launches}; vs backward='torch' "
+        f"{big_vs}")
+    check(big_launches == (1, 1, 1) and bool(torch.isfinite(g_big).all())
+          and big_vs["ok"],
+          f"the large-scene gradient: launches {big_launches}, {big_vs}")
+
+    launches = {"k2": k2_launches, "k3": k3_launches, "k3_modes": k3_modes}
     stats = {"grad_build_s": build_s, "inverse_losses": losses,
              "inverse_s_per_step": step_s, "inverse_paths_per_s": inv_pps,
              "flagship_grad_s": {k: v[1] for k, v in flag.items()},
@@ -1677,6 +1827,12 @@ def main() -> int:
         entry["launches_cli_path"] = cli_launches[key]
         entry["launches_tool_path"] = tool_launches[key]
     entries[1]["launches_cli_path_clustered"] = cli_launches["k2_clustered"]
+    # K3's table modes: the shared table over phases 10-11, the global one
+    # on the large-scene gradient (both paths through make_fast_renderer).
+    entries[2]["launches_by_mode"] = grad_launches["k3_modes"]
+    check(all(v > 0 for v in grad_launches["k3_modes"].values()),
+          f"a K3 table mode was launched on no path: "
+          f"{grad_launches['k3_modes']}")
     entries += tool_entries
     for entry in entries:
         check(entry["launches"] > 0 and 0.0 < entry["bound_ms"]

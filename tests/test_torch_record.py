@@ -88,6 +88,38 @@ def test_twin_matches_tpu_kernel(name):
         assert float((got == want).float().mean()) >= min_equal
 
 
+def test_tangent_ray_hits_as_in_the_tpu_kernel():
+    """A pinhole camera with no field of view sends every ray from (1, 0, 0)
+    along (0, 0, -1), tangent to the sphere at (0, 0, -5) of radius 1: in the
+    expanded quadratic half_b = -5, cq = 25 and disc == 0 exactly.  The TPU
+    kernel records that tangency as a hit of the first bounce, and so does
+    the twin (the CUDA kernel's guard is disc >= 0 for this reason)."""
+    from bevy_raytrace_tpu.core.camera import Camera as JCamera
+    import jax.numpy as jnp
+
+    kw = dict(width=16, height=8, samples_per_pixel=2, max_depth=3)
+    vec = lambda *v: jnp.asarray(v, jnp.float32)  # noqa: E731
+    zero = jnp.float32(0.0)
+    jcam = JCamera(origin=vec(1, 0, 0), u=vec(1, 0, 0), v=vec(0, 1, 0),
+                   w=vec(0, 0, 1), half_width=zero, half_height=zero,
+                   lens_radius=zero, focus_dist=jnp.float32(1.0))
+    jscene = j_make_scene(centers=[[0.0, 0.0, -5.0]], radii=[1.0],
+                          material_id=[0], albedo=[[0.5, 0.6, 0.7]],
+                          kind=[0], fuzz=[0.0], ior=[1.5])
+    _, want_res, want_res2 = render_pallas(
+        jscene, jcam, JConfig(**kw), 1, interpret=True, with_residuals=True,
+        record_second=True)
+    cfg = RenderConfig(**kw)
+    _, res, res2 = k2.render_record_plain(
+        scene_from_reference(jscene), camera_from_reference(jcam), cfg, 1,
+        record_second=True)
+    want_res = residuals_from_reference(want_res, cfg.num_pixels)
+    assert bool((want_res[:, 0] == 0).all()), "the TPU kernel missed"
+    assert torch.equal(res, want_res)
+    assert torch.equal(res2, residuals_from_reference(want_res2,
+                                                      cfg.num_pixels))
+
+
 @pytest.mark.parametrize("edge", [0.0, 0.01])
 def test_replay_reconstructs_the_recorded_image(edge):
     """The residuals are a complete checkpoint: the torch replay of them
