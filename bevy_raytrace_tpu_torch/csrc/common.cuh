@@ -7,8 +7,12 @@
 // step: the kernels' plain PyTorch twins use the Python side.  K1 and K2
 // shade with camera_ray and scatter; K3 replays the same steps in its own
 // form (hit_forward), which keeps the intermediates its adjoint reads and
-// normalizes with a correctly rounded 1/sqrt instead of rsqrtf.
+// normalizes with a correctly rounded 1/sqrt instead of rsqrtf.  At the end,
+// the host side of K1's and K4's staged sphere table: the launch set-up and
+// the size limit that the occupancy API gives.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -214,6 +218,82 @@ __device__ __forceinline__ void sweep_nearest(
       }
     }
   }
+}
+
+// ---- host side: the staged sphere table of K1 and K4 ---------------------
+
+// The most bytes of dynamic shared memory a block of `kernel` may take: the
+// per-block opt-in maximum less the kernel's static shared memory.
+template <typename Kernel>
+inline cudaError_t dynamic_smem_max(Kernel kernel, int* out) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
+    return err;
+  *out = optin - static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
+}
+
+// Sets up a launch of `kernel` that stages n_rows float4 rows in dynamic
+// shared memory: writes the bytes to *smem and raises the kernel's limit
+// above the 48 KB a launch gets without asking.  cudaErrorInvalidValue when
+// the rows do not fit a block: the caller asked for a mode the device
+// cannot give, and the launch must fail rather than read the rows elsewhere.
+template <typename Kernel>
+inline cudaError_t prepare_staged_launch(Kernel kernel, int n_rows,
+                                         size_t* smem) {
+  int max_bytes = 0;
+  cudaError_t err = dynamic_smem_max(kernel, &max_bytes);
+  if (err != cudaSuccess) return err;
+  *smem = sizeof(float4) * static_cast<size_t>(n_rows);
+  if (*smem > static_cast<size_t>(max_bytes)) return cudaErrorInvalidValue;
+  if (*smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*smem));
+  return cudaSuccess;
+}
+
+// The most bytes of rows `kernel` (launched with `threads` threads a block)
+// may stage while the SM keeps min_blocks of its blocks resident, or as many
+// as the kernel's registers allow if that is fewer: the largest multiple of
+// 16 bytes, up to dynamic_smem_max, for which the occupancy API gives that
+// many blocks.  A staged table that leaves fewer blocks per SM hides less of
+// the sweep's latency than the read-only cache costs (PERF.md, section 6).
+template <typename Kernel>
+inline cudaError_t table_bytes_limit(Kernel kernel, int threads,
+                                     int min_blocks, int* out) {
+  int max_bytes = 0, blocks0 = 0, blocks = 0;
+  cudaError_t err;
+  if ((err = dynamic_smem_max(kernel, &max_bytes)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &blocks0, kernel, threads, 0)) != cudaSuccess)
+    return err;
+  const int want = min_blocks < blocks0 ? min_blocks : blocks0;
+  // Blocks per SM fall as the bytes grow: the largest unit count that keeps
+  // `want`, by bisection over 16-byte units in [lo, hi].
+  int lo = 0, hi = max_bytes / 16;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks, kernel, threads, static_cast<size_t>(mid) * 16)) !=
+        cudaSuccess)
+      return err;
+    if (blocks >= want)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  *out = lo * 16;
+  return cudaSuccess;
 }
 
 }  // namespace brt

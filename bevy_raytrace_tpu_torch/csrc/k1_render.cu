@@ -23,20 +23,38 @@
 //     accumulate in registers in (sample, bounce) order, the TPU kernel's
 //     order, and are written once.  The wrapper divides by spp.
 //
-// The TPU kernel's persistent-lane refill (a dead path starts its lane's
-// next sample in the same round) is, on a GPU, simply a per-thread `break`
-// out of the bounce loop into the next sample.  Left out, as TPU devices:
-// the bf16 limb split and one-hot MXU gather, the 10-bit packed (t|idx) key
-// and its 1,024-sphere cap, f32 lane counters, v_planes/tile_rows/chunking,
-// the plan= culling and the debug probes.
+// The schedule is the TPU kernel's persistent-lane refill: ONE loop over
+// rounds per lane, with the lane's path state (sample s, bounce, o, d,
+// throughput) in registers.  Each round a lane that needs a path generates
+// sample s's camera ray, every live lane runs the sweep, then each lane
+// shades, adds the sky or is absorbed; a lane whose path ended advances s in
+// the same round, and leaves when s == spp.  So the sweep, nearly all of a
+// round's work, runs on every lane that still has samples, instead of
+// waiting at the end of a bounce loop for the warp's longest path: a lane
+// idles only once its own samples are done, and balance_perm (pixels sorted
+// by measured path length) narrows how far apart a warp's lanes finish.
+// Each lane still walks its own samples and bounces in order, so the sums
+// are added in the same order as a nested sample / bounce loop's, bit for
+// bit.
+//
+// The sphere rows are staged in dynamic shared memory once a block
+// (table_mode 1; the rate probe V3 ran the same loop 1.30x faster from
+// there), before any thread may leave; tables larger than the plan allows
+// (kernels/common.py::forward_table_plan, from brt_k1_table_bytes_limit) are
+// read through the read-only cache (table_mode 0).  Both modes compute the
+// same bits.
+//
+// Left out, as TPU devices: the bf16 limb split and one-hot MXU gather, the
+// 10-bit packed (t|idx) key and its 1,024-sphere cap, f32 lane counters,
+// v_planes/tile_rows/chunking, the plan= culling and the debug probes.
 //
 // What bounds it on an H100: fp32 issue in the sweep (about 20 flops per
-// ray-sphere test) and warp divergence, not bytes: the sphere table (16 B
-// of geometry per sphere, read as one broadcast float4 load by the whole
-// warp) stays in L1/L2, and the only device-memory traffic is pids in and
-// 16 B per lane out.  Divergence comes from lanes of one warp whose paths
-// have different lengths; balance_perm sorts pixels by measured path length
-// so a warp holds similar-cost pixels.
+// ray-sphere test), not bytes: the sphere table (16 B of geometry per
+// sphere, read as one broadcast float4 load by the whole warp) stays in
+// shared memory or L1/L2, and the only device-memory traffic is pids in and
+// 16 B per lane out.  Lanes idle once their own samples are done;
+// balance_perm sorts pixels by measured path length so a warp holds
+// similar-cost pixels.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3.  No
 // --use_fast_math.  --fmad is left at its default (on): a*b+c contracts to
@@ -60,6 +78,9 @@ constexpr int kThreads = 128;
 
 // geom[i] = (cx, cy, cz, r^2); attr[2i] = (1/r, albedo r, g, b),
 // attr[2i+1] = (kind, fuzz, ior, 0).  1/r keeps the radius sign (hollow glass).
+// SMEM: geom is staged into dynamic shared memory before any thread leaves,
+// and the sweep and the winner's row read it there.
+template <bool SMEM>
 __global__ void __launch_bounds__(kThreads)
     k1_render_kernel(const float4* __restrict__ geom,
                      const float4* __restrict__ attr, int n_spheres,
@@ -68,43 +89,56 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ fb, float* __restrict__ len_out,
                      uint32_t seed, uint32_t sample_base, int spp,
                      int max_depth, float t_min, int width, int height) {
+  extern __shared__ float4 staged[];
+  if (SMEM) {
+    for (int j = threadIdx.x; j < n_spheres; j += kThreads)
+      staged[j] = __ldg(geom + j);
+    __syncthreads();
+  }
+  const float4* rows = SMEM ? staged : geom;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
-  const brt::Cam c = brt::load_cam(cam_in);
   const int pid = pids[lane];
   const uint32_t upid = static_cast<uint32_t>(pid);
-  const float px = static_cast<float>(pid % width);
-  const float py = static_cast<float>(pid / width);
-  const float fw = static_cast<float>(width);
-  const float fh = static_cast<float>(height);
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, rounds = 0.f;
+  // The lane's path: sample s, its bounce, ray (o, d) and throughput.
+  int s = max_depth > 0 ? 0 : spp;  // depth 0: no round, black
+  int bounce = 0;
+  uint32_t su = 0;
+  float o[3], d[3];
+  float tp_r = 1.f, tp_g = 1.f, tp_b = 1.f;
 
-  for (int s = 0; s < spp; ++s) {
-    const uint32_t su = sample_base + static_cast<uint32_t>(s);
-    uint32_t ca = upid, cb = su, cc = brt::CAMERA_STREAM, cd = seed;
-    brt::pcg4d(ca, cb, cc, cd);
-    float o[3], d[3];
-    brt::camera_ray(c, px, py, fw, fh, brt::to_unit(ca), brt::to_unit(cb),
-                    brt::to_unit(cc), brt::to_unit(cd), o, d);
-    float tp_r = 1.f, tp_g = 1.f, tp_b = 1.f;
-
-    for (int bounce = 0; bounce < max_depth; ++bounce) {
-      rounds += 1.0f;
-      // ---- dense sweep: nearest hit, first index wins ties ----------------
-      float best_t;
-      int best;
-      brt::sweep_nearest<1, false>(geom, n_spheres, o, d, t_min, best_t, best);
-      if (best < 0) {  // miss: sky, and the path ends
-        float sk_r, sk_g;
-        brt::sky(d[1], sk_r, sk_g);
-        acc_r += tp_r * sk_r;
-        acc_g += tp_g * sk_g;
-        acc_b += tp_b;
-        break;
-      }
+  while (s < spp) {
+    if (bounce == 0) {  // a new path: sample s's camera ray
+      // The camera and the pixel's coordinates are read or derived here,
+      // once a path, so they hold no register through the sweep.
+      const brt::Cam c = brt::load_cam(cam_in);
+      su = sample_base + static_cast<uint32_t>(s);
+      uint32_t ca = upid, cb = su, cc = brt::CAMERA_STREAM, cd = seed;
+      brt::pcg4d(ca, cb, cc, cd);
+      brt::camera_ray(c, static_cast<float>(pid % width),
+                      static_cast<float>(pid / width),
+                      static_cast<float>(width), static_cast<float>(height),
+                      brt::to_unit(ca), brt::to_unit(cb), brt::to_unit(cc),
+                      brt::to_unit(cd), o, d);
+      tp_r = tp_g = tp_b = 1.f;
+    }
+    rounds += 1.0f;
+    // ---- dense sweep: nearest hit, first index wins ties ------------------
+    float best_t;
+    int best;
+    brt::sweep_nearest<1, SMEM>(rows, n_spheres, o, d, t_min, best_t, best);
+    bool ended = true;
+    if (best < 0) {  // miss: sky, and the path ends
+      float sk_r, sk_g;
+      brt::sky(d[1], sk_r, sk_g);
+      acc_r += tp_r * sk_r;
+      acc_g += tp_g * sk_g;
+      acc_b += tp_b;
+    } else {
       // ---- exact t of the winner, hit frame -------------------------------
-      const float4 g = __ldg(geom + best);
+      const float4 g = SMEM ? rows[best] : __ldg(geom + best);
       const float4 a0 = __ldg(attr + 2 * best);
       const float4 a1 = __ldg(attr + 2 * best + 1);
       const float rocx = o[0] - g.x, rocy = o[1] - g.y, rocz = o[2] - g.z;
@@ -122,25 +156,31 @@ __global__ void __launch_bounds__(kThreads)
         n[1] = -n[1];
         n[2] = -n[2];
       }
-      // ---- shade -----------------------------------------------------------
+      // ---- shade: a fuzzed metal reflection below the surface is absorbed
       uint32_t ba = upid, bb = su, bc = static_cast<uint32_t>(bounce),
                bd = seed;
       brt::pcg4d(ba, bb, bc, bd);
       float sdir[3];
-      if (!brt::scatter(d, n, front, a1.x, a1.y, a1.z, brt::to_unit(ba),
-                        brt::to_unit(bb), brt::to_unit(bc), brt::to_unit(bd),
-                        sdir))
-        break;  // a fuzzed metal reflection below the surface: absorbed
-      if (brt::is_lambertian(a1.x) || brt::is_metal(a1.x)) {  // glass: 1
-        tp_r *= a0.y;
-        tp_g *= a0.z;
-        tp_b *= a0.w;
-      }
+      if (brt::scatter(d, n, front, a1.x, a1.y, a1.z, brt::to_unit(ba),
+                       brt::to_unit(bb), brt::to_unit(bc), brt::to_unit(bd),
+                       sdir)) {
+        if (brt::is_lambertian(a1.x) || brt::is_metal(a1.x)) {  // glass: 1
+          tp_r *= a0.y;
+          tp_g *= a0.z;
+          tp_b *= a0.w;
+        }
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        o[k] = h[k];
-        d[k] = sdir[k];
+        for (int k = 0; k < 3; ++k) {
+          o[k] = h[k];
+          d[k] = sdir[k];
+        }
+        // Depth exhaustion kills the path with black.
+        ended = ++bounce == max_depth;
       }
+    }
+    if (ended) {  // the lane takes its next sample in the next round
+      ++s;
+      bounce = 0;
     }
   }
   fb[3 * lane + 0] = acc_r;
@@ -151,24 +191,48 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// The most bytes of sphere rows K1 stages in shared memory while keeping
+// min_blocks blocks resident on an SM (or as many as its registers allow, if
+// fewer): see brt::table_bytes_limit.  Writes it to *out; returns a
+// cudaError_t.  kernels/common.py::forward_table_plan reads it.
+extern "C" int brt_k1_table_bytes_limit(int min_blocks, int* out) {
+  return static_cast<int>(brt::table_bytes_limit(
+      k1_render_kernel<true>, kThreads, min_blocks, out));
+}
+
 // Launches K1 on `stream`.  Pointers are device pointers: geom [S] float4,
 // attr [2S] float4, cam [16] float, pids [n_lanes] int32, fb [n_lanes, 3]
-// and len [n_lanes] float sums over the spp samples.  Returns the launch's
-// cudaError_t (0 on success); the kernel itself runs asynchronously.
+// and len [n_lanes] float sums over the spp samples.  table_mode: 1 = the
+// rows staged in shared memory (16 x S bytes must fit what a block may take
+// on the device), 0 = read through the read-only cache.  Returns the
+// launch's cudaError_t, or cudaErrorInvalidValue for arguments it does not
+// take; the kernel itself runs asynchronously.
 extern "C" int brt_k1_render(const void* geom, const void* attr, int n_spheres,
                              const void* cam, const void* pids, int n_lanes,
                              void* fb, void* len, unsigned int seed,
                              unsigned int sample_base, int spp, int max_depth,
                              float t_min, int width, int height,
-                             void* stream) {
+                             int table_mode, void* stream) {
+  if (n_spheres < 1 || (table_mode != 0 && table_mode != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_lanes <= 0) return static_cast<int>(cudaSuccess);
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
-  k1_render_kernel<<<blocks, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(geom), static_cast<const float4*>(attr),
-      n_spheres, static_cast<const float*>(cam),
-      static_cast<const int*>(pids), n_lanes, static_cast<float*>(fb),
-      static_cast<float*>(len), seed, sample_base, spp, max_depth, t_min,
-      width, height);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BRT_K1_ARGS                                                           \
+  static_cast<const float4*>(geom), static_cast<const float4*>(attr),         \
+      n_spheres, static_cast<const float*>(cam),                              \
+      static_cast<const int*>(pids), n_lanes, static_cast<float*>(fb),        \
+      static_cast<float*>(len), seed, sample_base, spp, max_depth, t_min,     \
+      width, height
+  if (table_mode == 1) {
+    size_t smem = 0;
+    const cudaError_t err =
+        brt::prepare_staged_launch(k1_render_kernel<true>, n_spheres, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k1_render_kernel<true><<<blocks, kThreads, smem, st>>>(BRT_K1_ARGS);
+  } else {
+    k1_render_kernel<false><<<blocks, kThreads, 0, st>>>(BRT_K1_ARGS);
+  }
+#undef BRT_K1_ARGS
   return static_cast<int>(cudaGetLastError());
 }

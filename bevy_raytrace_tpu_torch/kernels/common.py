@@ -6,19 +6,46 @@ the kernels' camera ray and shading step on component planes
 (`_plain_camera`, `_scatter_vector`, `_plain_scatter`), which the twins of
 K1 and K2 and the differentiable replay (K3's twin) share.  Their CUDA
 counterparts live in `csrc/common.cuh`; keep the two in step.
+
+Also the table modes of the dense-sweep kernels K1 and K4: the rule that
+stages the sphere rows in shared memory or reads them through the read-only
+cache (`forward_table_plan`, a pure function of the row count and a limit),
+and the limit each kernel's library reports for this device.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from bevy_raytrace_tpu_torch.kernels import build
 from bevy_raytrace_tpu_torch.rng.pcg import TWO_PI as _TWO_PI
 from bevy_raytrace_tpu_torch.rng.pcg import _to_unit_float as _to_unit
 from bevy_raytrace_tpu_torch.rng.pcg import pcg4d as _pcg4d
 from bevy_raytrace_tpu_torch.wavefront.render import CAMERA_STREAM
 
 __all__ = ["_pcg4d", "_to_unit", "_rsqrt_guard", "_inv_sqrt_guard", "_cbrt",
-           "_TWO_PI", "_plain_camera", "_scatter_vector", "_plain_scatter"]
+           "_TWO_PI", "_plain_camera", "_scatter_vector", "_plain_scatter",
+           "FORWARD_TABLE_MODES", "FORWARD_ROW_BYTES", "FORWARD_MIN_BLOCKS",
+           "forward_table_plan", "check_table_mode", "forward_table_mode"]
+
+# K1's and K4's table modes, in the launchers' numbering (0, 1).
+FORWARD_TABLE_MODES = ("global", "shared")
+# Bytes of a staged sphere row: (cx, cy, cz, r^2) float32.
+FORWARD_ROW_BYTES = 16
+# Blocks of 128 threads an SM must keep resident for the staged table to
+# pay, by library: below that the sweep's latency is less hidden than the
+# read-only cache costs.  On an H100 both modes were timed on seeded scenes
+# at the largest table each count of resident blocks admits
+# (`profile_grad.py --parts forward`, PERF.md section 6).  Staged against
+# device memory: K1 0.5-2.4% faster at 7 blocks (2,000 rows), 1.6-2.2%
+# slower at 6 (2,368), 7-11% slower at 5; K4 5.6-6.7% faster at 7, 1.2-2.7%
+# faster at 6, 1.8-4.3% slower at 5.  So K1 stages up to 32,256 bytes (2,016
+# rows) and K4 up to 37,888 (2,368), with 56 registers a thread.  The
+# libraries turn the count into bytes with the occupancy API.
+FORWARD_MIN_BLOCKS = {"k1_render": 7, "k4_sweep_record": 6}
 
 
 def _rsqrt_guard(n2):
@@ -134,3 +161,56 @@ def _plain_scatter(dx, dy, dz, nx, ny, nz, front, kind, fuzz, ior, u):
     sx, sy, sz = vx * q, vy * q, vz * q
     return (sx, sy, sz, ~is_lam & ~is_met,
             ~is_met | ((sx * nx + sy * ny + sz * nz) > 0.0))
+
+
+# --- the table modes of K1 and K4 ----------------------------------------
+
+
+def forward_table_plan(n_rows: int, limit_bytes: int):
+    """The table mode of K1 or K4 for `n_rows` sphere rows -> (mode, bytes
+    of dynamic shared memory a block takes): ("shared", n_rows *
+    FORWARD_ROW_BYTES) when that fits `limit_bytes` (what the kernel's
+    library reports, `brt_k1_table_bytes_limit` / `brt_k4_table_bytes_limit`:
+    the most a block may stage while the kernel's FORWARD_MIN_BLOCKS blocks
+    stay resident on an SM), else ("global", 0)."""
+    if n_rows < 0 or limit_bytes < 0:
+        raise ValueError(f"n_rows={n_rows} and limit_bytes={limit_bytes} "
+                         f"must be >= 0")
+    nbytes = n_rows * FORWARD_ROW_BYTES
+    return ("shared", nbytes) if nbytes <= limit_bytes else ("global", 0)
+
+
+def check_table_mode(table_mode):
+    """A wrapper's `table_mode` argument: None (the plan's) or one of
+    FORWARD_TABLE_MODES; anything else raises before any launch."""
+    if table_mode is not None and table_mode not in FORWARD_TABLE_MODES:
+        raise ValueError(f"table_mode must be None or one of "
+                         f"{FORWARD_TABLE_MODES}, got {table_mode!r}")
+    return table_mode
+
+
+@functools.lru_cache(maxsize=None)
+def _table_limit(name: str, index: int) -> int:
+    """`brt_<kernel>_table_bytes_limit` of library `name` on CUDA device
+    `index`, for its FORWARD_MIN_BLOCKS."""
+    kernel = name.split("_")[0]
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = getattr(build.load(name), f"brt_{kernel}_table_bytes_limit")(
+            FORWARD_MIN_BLOCKS[name], ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{kernel}'s shared-memory query failed with "
+                           f"cudaError_t {err}")
+    return out.value
+
+
+def forward_table_mode(name: str, device, n_rows: int, table_mode=None):
+    """The table mode a launch of library `name` ("k1_render",
+    "k4_sweep_record") on CUDA `device` takes: `table_mode` when given (the
+    checks on the card force one; the launcher refuses a shared table that
+    does not fit a block), else `forward_table_plan`'s."""
+    if check_table_mode(table_mode) is not None:
+        return table_mode
+    index = device.index
+    return forward_table_plan(n_rows, _table_limit(
+        name, torch.cuda.current_device() if index is None else index))[0]

@@ -5,8 +5,16 @@ replaces `bevy_raytrace_tpu/kernels/mxu_render.py::_make_kernel` (the TPU's
 v3 whole-frame forward kernel).  On CUDA tensors it launches the kernel or
 raises; on CPU tensors it runs `render_lanes_plain`, the twin in this module
 that computes the same thing with tensor ops.  The kernel is bound by fp32
-issue in the sphere sweep and by warp divergence, not by bytes;
-`balance_perm` exists to put pixels of similar path length into one warp.
+issue in the sphere sweep, not by bytes.  Each lane refills itself with its
+pixel's next sample when a path ends (one loop over rounds), so a lane
+idles only once its own samples are done; `balance_perm` puts pixels of
+similar path length into one warp so that they finish together.
+
+Table modes (`kernels/common.py::forward_table_plan`, by the sphere count):
+the kernel stages the sphere rows in shared memory once a block
+("shared") unless that would leave too few blocks resident on an SM; then
+it reads them through the read-only cache ("global").  Both give the same
+bits; the global launches are counted apart (`render_lanes.launches_global`).
 
 Host side, by the reference's names (bevy_raytrace_tpu/kernels/mxu_render.py):
   render_mxu_lanes, render_mxu_with_len, render_mxu, lane_pad,
@@ -37,10 +45,13 @@ import torch
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.kernels import build
 from bevy_raytrace_tpu_torch.kernels.common import (
+    FORWARD_TABLE_MODES,
     _pcg4d,
     _plain_camera,
     _plain_scatter,
     _to_unit,
+    check_table_mode,
+    forward_table_mode,
 )
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
@@ -198,7 +209,7 @@ def _k1_launcher():
     fn = lib.brt_k1_render
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, i32, vp, vp, i32, vp, vp, ctypes.c_uint,
-                   ctypes.c_uint, i32, i32, ctypes.c_float, i32, i32, vp]
+                   ctypes.c_uint, i32, i32, ctypes.c_float, i32, i32, i32, vp]
     fn.restype = i32
     return fn
 
@@ -218,18 +229,23 @@ def _check(name, t, dtype, shape, device):
 
 
 def render_lanes(geom, attr, cam, pids, seed: int, sample_base: int, spp: int,
-                 max_depth: int, t_min: float, width: int, height: int):
+                 max_depth: int, t_min: float, width: int, height: int,
+                 table_mode=None):
     """K1: render the absolute pixel ids `pids` [n] int32, one per lane.
 
     geom [S,4] and attr [S,8] float32 are `_scene_tables(scene)`; cam [16]
     float32 is `Camera.pack()`; seed is the frame's 32-bit seed counter;
     samples are [sample_base, sample_base + spp).  Returns (fb [n,3],
     len [n]): per-lane radiance and executed-round sums over the samples
-    (not yet divided by spp).  n must be a multiple of 128.
+    (not yet divided by spp).  n must be a multiple of 128.  `table_mode`
+    None takes `forward_table_plan`'s mode; "shared" or "global" forces one
+    (a shared table too large for a block raises).
 
-    CUDA tensors launch the kernel (and count one in `render_lanes.launches`);
-    CPU tensors run `render_lanes_plain`; any other device raises."""
+    CUDA tensors launch the kernel (and count one in `render_lanes.launches`,
+    and in `render_lanes.launches_global` when the rows are read from device
+    memory); CPU tensors run `render_lanes_plain`; any other device raises."""
     device = pids.device
+    check_table_mode(table_mode)
     _check("pids", pids, torch.int32, (None,), device)
     n_spheres = geom.shape[0] if isinstance(geom, torch.Tensor) else 0
     _check("geom", geom, torch.float32, (n_spheres, 4), device)
@@ -248,6 +264,7 @@ def render_lanes(geom, attr, cam, pids, seed: int, sample_base: int, spp: int,
                                   spp, max_depth, t_min, width, height)
     if device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA (or its twin on CPU), not {device}")
+    mode = forward_table_mode("k1_render", device, n_spheres, table_mode)
     fb = torch.empty((n, 3), dtype=torch.float32, device=device)
     ln = torch.empty((n,), dtype=torch.float32, device=device)
     launch = _k1_launcher()
@@ -256,14 +273,18 @@ def render_lanes(geom, attr, cam, pids, seed: int, sample_base: int, spp: int,
         err = launch(geom.data_ptr(), attr.data_ptr(), n_spheres,
                      cam.data_ptr(), pids.data_ptr(), n, fb.data_ptr(),
                      ln.data_ptr(), seed, sample_base, spp, max_depth,
-                     t_min, width, height, stream)
+                     t_min, width, height, FORWARD_TABLE_MODES.index(mode),
+                     stream)
     if err != 0:
-        raise RuntimeError(f"K1 launch failed with cudaError_t {err}")
+        raise RuntimeError(f"K1 launch ({mode} table) failed with "
+                           f"cudaError_t {err}")
     render_lanes.launches += 1
+    render_lanes.launches_global += int(mode == "global")
     return fb, ln
 
 
 render_lanes.launches = 0
+render_lanes.launches_global = 0
 
 
 # --- host side ----------------------------------------------------------

@@ -11,8 +11,12 @@ dense-sweep recorder, launched by `render_sweep_record`).  It is K1's body
 runner-up in `res2`), in stripe mode throughout: thread i renders the
 absolute pixel `pixel_base + i`.  On CUDA tensors it launches the kernel or
 raises; on CPU tensors it runs `sweep_record_frame_plain`, the twin in this
-module.  The kernel is bound by fp32 instruction throughput in the sweep
-and by warp divergence, not by bytes.
+module.  The kernel is bound by fp32 instruction throughput in the sweep,
+not by bytes.  Like K1 it refills each thread with its pixel's next sample
+when a path ends (one loop over rounds), and it has K1's two table modes
+(`kernels/common.py::forward_table_plan`: the sphere rows staged in shared
+memory, or read from device memory above the plan's limit, counted in
+`sweep_record_frame.launches_global`), with the same bits in both.
 
 Host side, by the reference's name: `render_sweep_record(scene, camera,
 config, frame, sample_base, record_second, pixel_base, num_local)` ->
@@ -39,6 +43,11 @@ import torch
 
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.kernels import build
+from bevy_raytrace_tpu_torch.kernels.common import (
+    FORWARD_TABLE_MODES,
+    check_table_mode,
+    forward_table_mode,
+)
 from bevy_raytrace_tpu_torch.kernels.record import (
     _LANES,
     _PLAIN_WORKSPACE,
@@ -119,14 +128,14 @@ def _k4_launcher():
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)
     fn.argtypes = [vp, vp, i32, vp, i32, i32, vp, vp, vp, i32, i32, u32, u32,
-                   i32, i32, f32, i32, i32, vp]
+                   i32, i32, f32, i32, i32, i32, vp]
     fn.restype = i32
     return fn
 
 
 def sweep_record_frame(table, cam16, config: RenderConfig, frame: int = 0,
                        sample_base: int = 0, record_second: bool = False,
-                       pixel_base=None, num_local=None):
+                       pixel_base=None, num_local=None, table_mode=None):
     """K4: render and record `config`'s frame, or one stripe of it, from the
     sphere table and packed camera.
 
@@ -137,12 +146,15 @@ def sweep_record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     flat [num_local, 3] stripe; else the whole frame, [H, W, 3].  Returns
     (img, res, res2): res [spp, max_depth, npix] int16/int32 winner indices
     in the table's order, res2 the runner-ups when `record_second` (else
-    None).
+    None).  `table_mode` None takes `forward_table_plan`'s mode; "shared" or
+    "global" forces one (a shared table too large for a block raises).
 
     CUDA tensors launch the kernel (and count one in
-    `sweep_record_frame.launches`); CPU tensors run
+    `sweep_record_frame.launches`, and in `sweep_record_frame.launches_global`
+    when the rows are read from device memory); CPU tensors run
     `sweep_record_frame_plain`; any other device raises."""
     table, cam16 = table.detach(), cam16.detach()
+    check_table_mode(table_mode)
     _check_frame(table, cam16, config, sample_base)
     base, n = _stripe(config, pixel_base, num_local)
     device = table.device
@@ -152,6 +164,8 @@ def sweep_record_frame(table, cam16, config: RenderConfig, frame: int = 0,
                                         pixel_base, num_local)
     if device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA (or its twin on CPU), not {device}")
+    mode = forward_table_mode("k4_sweep_record", device,
+                              max(table.shape[0], 1), table_mode)
     geom, attr = _sweep_tables(table)
     spp, depth = config.samples_per_pixel, config.max_depth
     rdt = residual_dtype(table.shape[0])
@@ -159,25 +173,28 @@ def sweep_record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     res = torch.empty((spp, depth, n), dtype=rdt, device=device)
     res2 = (torch.empty((spp, depth, n), dtype=rdt, device=device)
             if record_second else None)
-    launch = _k4_launcher()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = launch(geom.data_ptr(), attr.data_ptr(), geom.shape[0],
-                     cam16.data_ptr(), base, n, img.data_ptr(),
-                     res.data_ptr(),
-                     0 if res2 is None else res2.data_ptr(),
-                     2 if rdt == torch.int16 else 4, 1 + int(record_second),
-                     frame_seed(config, frame), sample_base, spp, depth,
-                     config.t_min, config.width, config.height, stream)
+        err = _k4_launcher()(
+            geom.data_ptr(), attr.data_ptr(), geom.shape[0], cam16.data_ptr(),
+            base, n, img.data_ptr(), res.data_ptr(),
+            0 if res2 is None else res2.data_ptr(),
+            2 if rdt == torch.int16 else 4, 1 + int(record_second),
+            frame_seed(config, frame), sample_base, spp, depth, config.t_min,
+            config.width, config.height, FORWARD_TABLE_MODES.index(mode),
+            stream)
     if err != 0:
-        raise RuntimeError(f"K4 launch failed with cudaError_t {err}")
+        raise RuntimeError(f"K4 launch ({mode} table) failed with "
+                           f"cudaError_t {err}")
     sweep_record_frame.launches += 1
+    sweep_record_frame.launches_global += int(mode == "global")
     if num_local is None:
         img = img.reshape(config.height, config.width, 3)
     return img, res, res2
 
 
 sweep_record_frame.launches = 0
+sweep_record_frame.launches_global = 0
 
 
 # --- host side ----------------------------------------------------------

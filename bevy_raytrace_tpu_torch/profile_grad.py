@@ -2,7 +2,7 @@
 bounds K3, and the forward kernels side by side.
 
     python3 -m bevy_raytrace_tpu_torch.profile_grad [--out DIR] [--reps N]
-        [--parts k3,forward,profile] [--k3-variants kernel,...]
+        [--parts k3,forward,efficiency,profile] [--k3-variants kernel,...]
 
 1. Profile: `torch.profiler` over one step of each gradient shape that
    `chip_smoke.py` drives, after one warm-up step: the `cli inverse` step
@@ -39,9 +39,22 @@ bounds K3, and the forward kernels side by side.
    gradient's 2-sample slice (rtiow, 1200x800, samples 128-129, depth 8),
    the `cli render` frame (rtiow, 1200x800, 64 spp, depth 8) and the
    reference frame (reference_scene, 1920x1080, 64 spp, depth 3; value
-   only), with the executed rounds per path from K1's `len` output and a
-   SHA-256 of each kernel's outputs (two builds of a kernel that print the
-   same digest computed the same bits).
+   only) and the flagship frame (rtiow, 1200x800, 256 spp, depth 8; K1 and
+   K4 recording winners), with the executed rounds per path from K1's `len`
+   output and a SHA-256 of each kernel's outputs (two builds of a kernel
+   that print the same digest computed the same bits).  K1 and K4 also run
+   with the sphere rows read from device memory (the global table mode,
+   forced; its digests must equal the staged table's), and both modes are
+   timed on seeded scenes of 2,000 to 14,000 spheres: at the largest table
+   each count of resident blocks (7 down to 3) admits, and above.
+4. Lane efficiency (`--parts efficiency`, no timing): K1 launched once per
+   sample (spp=1, sample_base=s), so `len` holds each (sample, lane)'s
+   executed rounds; per warp of 32 lanes, the share of lane-rounds that do
+   work under the nested schedule (every lane waits for the warp's longest
+   path of each sample) and under the per-lane refill (a lane waits only for
+   the warp's longest total), at the forward shapes of part 3 and at the
+   flagship frame in K1's balanced order (a 16-sample probe, then the rest
+   on `balance_perm`) and in K4's identity order.
 
 Prints a line per measurement, then the card's name and power limit, then
 one JSON object with every number.  `--out DIR` also writes the profiler
@@ -52,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -299,39 +313,240 @@ def k3_probes(dev, reps, variants):
     return out, ptxas
 
 
-def forward_kernels(dev, reps):
-    """Part 3 -> {shape: {spheres, paths, rounds_per_path, ms: {kernel:
-    [ms, ...]}, sha256: {kernel: digest}}}."""
+WARP = 32
+
+
+def lane_rounds(geom, attr, cam16, pids, seed, sample_base, spp, max_depth,
+                t_min, width, height):
+    """Executed rounds of each (sample, lane) -> float32 [spp, lanes]: K1
+    (`render_lanes`, or its twin on CPU tensors) launched once per sample
+    with spp=1, so its `len` output counts that sample's rounds alone."""
+    import torch
+
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+
+    return torch.stack([
+        k1.render_lanes(geom, attr, cam16, pids, seed, sample_base + s, 1,
+                        max_depth, t_min, width, height)[1]
+        for s in range(spp)])
+
+
+def schedule_efficiency(rounds):
+    """Lane efficiency of the two schedules from `rounds` [spp, lanes]
+    (lanes a multiple of 32; consecutive lanes share a warp) -> {work,
+    nested_slots, refill_slots, nested, refill}.
+
+    work is the sum of the rounds.  Under the nested schedule (for each
+    sample, for each bounce) a warp runs, per sample, its longest lane's
+    rounds: nested_slots = 32 * sum over warps and samples of that maximum.
+    Under the per-lane refill a warp runs its longest lane's total over all
+    samples: refill_slots = 32 * sum over warps of that maximum.  Each
+    efficiency is work / slots (1.0 where there is no work)."""
+    import torch
+
+    spp, lanes = rounds.shape
+    if lanes % WARP:
+        raise ValueError(f"lanes must be a multiple of {WARP}, got {lanes}")
+    r = rounds.to(torch.float64).reshape(spp, lanes // WARP, WARP)
+    work = float(r.sum())
+    nested = WARP * float(r.amax(dim=2).sum()) if spp else 0.0
+    refill = WARP * float(r.sum(dim=0).amax(dim=1).sum())
+    return {"work": work, "nested_slots": nested, "refill_slots": refill,
+            "nested": work / nested if nested else 1.0,
+            "refill": work / refill if refill else 1.0}
+
+
+def _joined(*effs):
+    """The efficiencies of launches run one after another."""
+    out = {k: sum(e[k] for e in effs)
+           for k in ("work", "nested_slots", "refill_slots")}
+    out["nested"] = out["work"] / out["nested_slots"]
+    out["refill"] = out["work"] / out["refill_slots"]
+    return out
+
+
+def efficiencies(dev):
+    """Part 4 -> {shape: schedule_efficiency(...) and rounds_per_path}."""
+    import torch
+
+    from bevy_raytrace_tpu_torch.kernels import record as k2
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+    from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
+
+    out = {}
+    for name, ((scene_fn, cam_fn), cfg, sb) in _forward_shapes().items():
+        scene = scene_fn(device=dev)[0]
+        cam = cam_fn(cfg.aspect, device=dev)
+        _, cam16 = k2._operands(scene, cam)
+        geom, attr = k1._scene_tables(scene)
+        pids = torch.arange(k1.lane_pad(cfg.num_pixels), dtype=torch.int32,
+                            device=dev)
+        rounds = lane_rounds(geom, attr, cam16, pids, frame_seed(cfg, 1), sb,
+                             cfg.samples_per_pixel, cfg.max_depth, cfg.t_min,
+                             cfg.width, cfg.height)
+        shapes = {name: schedule_efficiency(rounds)}
+        if name == "flagship_frame":
+            # K1's order (render_probed): samples 0-15 in raster order, then
+            # the rest on balance_perm of the probe's mean path length.
+            n = cfg.num_pixels
+            probe = rounds[:16, :n]
+            perm = k1.balance_perm((probe.sum(0) / 16).reshape(
+                cfg.height, cfg.width)).long()
+            rest = rounds[16:, :n][:, perm]
+            shapes = {"flagship_frame_identity (K4's order)": shapes[name],
+                      "flagship_frame_balanced (K1's order)": _joined(
+                          schedule_efficiency(probe),
+                          schedule_efficiency(rest))}
+            del probe, rest
+        for label, eff in shapes.items():
+            eff["rounds_per_path"] = eff["work"] / cfg.rays_per_frame
+            log(f"[efficiency] {label}: {eff['rounds_per_path']:.4f} rounds "
+                f"per path; lane efficiency nested {eff['nested']:.4f}, "
+                f"refill {eff['refill']:.4f} (refill / nested "
+                f"{eff['refill'] / eff['nested']:.3f}x)")
+            out[label] = eff
+        del rounds
+    return out
+
+
+def _forward_shapes():
+    """name -> ((scene fn, camera fn), config, sample_base) of part 3."""
+    from bevy_raytrace_tpu_torch import RenderConfig, scenes
+
+    rtiow = (scenes.rtiow_final_scene, scenes.rtiow_final_camera)
+    flagship = RenderConfig(width=1200, height=800, samples_per_pixel=64,
+                            max_depth=8)
+    return {
+        "grad_bench": (rtiow, RenderConfig(width=400, height=300,
+                                           samples_per_pixel=16, max_depth=8,
+                                           edge_softness=0.01), 0),
+        "flagship_slice_2spp": (rtiow, flagship.replace(samples_per_pixel=2),
+                                128),
+        "cli_frame": (rtiow, flagship, 0),
+        "reference_frame": ((scenes.reference_scene,
+                             scenes.rtiow_final_camera),
+                            RenderConfig(width=1920, height=1080,
+                                         samples_per_pixel=64, max_depth=3),
+                            0),
+        "flagship_frame": (rtiow, flagship.replace(samples_per_pixel=256), 0),
+    }
+
+
+def random_scene(n, seed=0, device=None):
+    """A seeded scene of `n` spheres: the RTiOW ground and n - 1 small
+    spheres of mixed materials scattered over it, denser than
+    rtiow_final's (tables up to and above a block's shared memory)."""
+    import numpy as np
+
+    from bevy_raytrace_tpu_torch.core.types import make_scene
+
+    rng = np.random.default_rng(seed)
+    m = n - 1
+    r = rng.uniform(0.05, 0.25, m)
+    xz = rng.uniform(-11.0, 11.0, (m, 2))
+    centers = np.concatenate([[[0.0, -1000.0, 0.0]],
+                              np.stack([xz[:, 0], r, xz[:, 1]], 1)])
+    return make_scene(
+        centers, np.concatenate([[1000.0], r]), np.arange(n),
+        np.concatenate([[[0.5, 0.5, 0.5]], rng.uniform(0.1, 0.9, (m, 3))]),
+        np.concatenate([[0], rng.choice(3, m, p=[0.7, 0.2, 0.1])]),
+        np.concatenate([[0.0], rng.uniform(0.0, 0.5, m)]),
+        np.full(n, 1.5), device=device)
+
+
+# Seeded scenes at which both table modes are timed (part 3): 2,000, 2,368,
+# 2,848 and 3,584 rows are the largest tables at which 7, 6, 5 and 4 blocks
+# stay resident on an H100 (the occupancy API, 56 registers a thread); 2,400,
+# 3,000 and 3,500 fall between; 4,096 leaves 3 blocks.
+TABLE_SIZES = (2000, 2368, 2400, 2848, 3000, 3500, 3584, 4096, 8192, 14000)
+
+
+def _digest(outputs):
+    """SHA-256 (16 hex digits) of a kernel's output tensors, moved to the
+    host 256 MiB at a time."""
+    h = hashlib.sha256()
+    for t in outputs:
+        if t is None:
+            continue
+        flat = t.reshape(-1)
+        step = (256 << 20) // max(flat.element_size(), 1)
+        for lo in range(0, flat.numel(), step):
+            h.update(flat[lo:lo + step].cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _time_runs(name, runs, reps, stats):
+    """Warm-up (and the digests), then `reps` interleaved rounds of CUDA
+    events over `runs`; logs the medians against the first run's."""
     import numpy as np
     import torch
 
+    stats["ms"] = {k: [] for k in runs}
+    stats["sha256"] = {}
+    for k, fn in runs.items():
+        stats["sha256"][k] = _digest(fn())
+        torch.cuda.synchronize()
+    for _ in range(reps):
+        for k, fn in runs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            stats["ms"][k].append(start.elapsed_time(end))
+    first = next(iter(runs))
+    base = float(np.median(stats["ms"][first]))
+    for k, ms in stats["ms"].items():
+        med = float(np.median(ms))
+        log(f"[forward]   {k:26s} median {med:9.3f} ms ({med / base:6.3f} "
+            f"x {first}); outputs sha256 {stats['sha256'][k]}; runs "
+            f"{[round(m, 3) for m in ms]}")
+
+
+def forward_kernels(dev, reps):
+    """Part 3 -> {shape: {spheres, paths, rounds_per_path, ms: {kernel:
+    [ms, ...]}, sha256: {kernel: digest}}}."""
+    import torch
+
     from bevy_raytrace_tpu_torch import RenderConfig, scenes
+    from bevy_raytrace_tpu_torch.kernels import build, common
     from bevy_raytrace_tpu_torch.kernels import record as k2
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
     from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
     from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
-    rtiow = (scenes.rtiow_final_scene, scenes.rtiow_final_camera)
-    flagship = RenderConfig(width=1200, height=800, samples_per_pixel=64,
-                            max_depth=8)
-    # name -> (scene, camera), config, sample_base, record modes timed.
-    shapes = {
-        "grad_bench": (rtiow, RenderConfig(width=400, height=300,
-                                           samples_per_pixel=16, max_depth=8,
-                                           edge_softness=0.01), 0, 3),
-        "flagship_slice_2spp": (rtiow, flagship.replace(samples_per_pixel=2),
-                                128, 3),
-        "cli_frame": (rtiow, flagship, 0, 3),
-        "reference_frame": ((scenes.reference_scene,
-                             scenes.rtiow_final_camera),
-                            RenderConfig(width=1920, height=1080,
-                                         samples_per_pixel=64, max_depth=3),
-                            0, 1),
-    }
-    records = {0: "_value", 1: "_record", 2: "_record_second"}
     out = {}
-    for name, ((scene_fn, cam_fn), cfg, sb, modes) in shapes.items():
+    names = ("k1_render", "k4_sweep_record")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(build.load, names)))
+    limits = {}
+    for name, lib in libs.items():
+        _, text = build.BUILD_LOG.get(build._key(name, ()), (0.0, ""))
+        for ln in text.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"[build] {name}: {ln.strip()}")
+        fn = getattr(lib, f"brt_{name.split('_')[0]}_table_bytes_limit")
+        limits[name] = {}
+        for blocks in range(1, 9):
+            got = ctypes.c_int(0)
+            check_rc = fn(blocks, ctypes.byref(got))
+            if check_rc != 0:
+                raise RuntimeError(f"{name} limit query: {check_rc}")
+            limits[name][blocks] = got.value
+        log(f"[forward] {name}: staged-table limit by resident blocks per SM "
+            f"(occupancy API): {limits[name]}; the plan takes "
+            f"{common.FORWARD_MIN_BLOCKS[name]}")
+    out["table_limits"] = limits
+
+    def k4_run(table, cam16, cfg, sb, second, mode=None):
+        kw = {} if mode is None else {"table_mode": mode}
+        return lambda: k4.sweep_record_frame(
+            table, cam16, cfg, 1, sample_base=sb, record_second=second, **kw)
+
+    records = {0: "_value", 1: "_record", 2: "_record_second"}
+    for name, ((scene_fn, cam_fn), cfg, sb) in _forward_shapes().items():
         scene = scene_fn(device=dev)[0]
         cam = cam_fn(cfg.aspect, device=dev)
         table, cam16 = k2._operands(scene, cam)
@@ -339,61 +554,82 @@ def forward_kernels(dev, reps):
         pids = torch.arange(k1.lane_pad(cfg.num_pixels), dtype=torch.int32,
                             device=dev)
 
-        def run_k1():
-            return k1.render_lanes(geom, attr, cam16, pids,
-                                   frame_seed(cfg, 1), sb,
-                                   cfg.samples_per_pixel, cfg.max_depth,
-                                   cfg.t_min, cfg.width, cfg.height)
+        def run_k1(mode=None):
+            kw = {} if mode is None else {"table_mode": mode}
+            return lambda: k1.render_lanes(
+                geom, attr, cam16, pids, frame_seed(cfg, 1), sb,
+                cfg.samples_per_pixel, cfg.max_depth, cfg.t_min, cfg.width,
+                cfg.height, **kw)
 
-        runs = {"k1": run_k1}
-        plan = cluster_scene(scene, 12)
-        for r in range(modes):
+        runs = {"k1": run_k1(), "k1_global": run_k1("global")}
+        if name == "flagship_frame":  # K1, and K4 as the gradient records
+            record_modes = (1,)
+        else:
+            record_modes = (0, 1, 2) if name != "reference_frame" else (0,)
+            plan = cluster_scene(scene, 12)
+        for r in record_modes:
             kw = dict(sample_base=sb, with_residuals=r >= 1,
                       record_second=r == 2)
-            runs["k2" + records[r]] = (
-                lambda kw=kw: k2.record_frame(table, cam16, cfg, 1, **kw))
-            runs["k2_culled_L12" + records[r]] = (
-                lambda kw=kw: k2.record_frame(table, cam16, cfg, 1,
-                                              clusters=plan, **kw))
+            if name != "flagship_frame":
+                runs["k2" + records[r]] = (
+                    lambda kw=kw: k2.record_frame(table, cam16, cfg, 1, **kw))
+                runs["k2_culled_L12" + records[r]] = (
+                    lambda kw=kw: k2.record_frame(table, cam16, cfg, 1,
+                                                  clusters=plan, **kw))
             if r >= 1:
-                runs["k4" + records[r]] = (
-                    lambda kw=kw: k4.sweep_record_frame(
-                        table, cam16, cfg, 1, sample_base=sb,
-                        record_second=kw["record_second"]))
+                runs["k4" + records[r]] = k4_run(table, cam16, cfg, sb, r == 2)
+                runs["k4" + records[r] + "_global"] = k4_run(
+                    table, cam16, cfg, sb, r == 2, "global")
         if name == "grad_bench":
             for size in (6, 24, 48):
                 runs[f"k2_culled_L{size}_record"] = (
                     lambda plan=cluster_scene(scene, size): k2.record_frame(
                         table, cam16, cfg, 1, clusters=plan))
         stats = {"spheres": scene.count, "paths": cfg.rays_per_frame,
-                 "rounds_per_path": float(run_k1()[1][:cfg.num_pixels].sum())
-                 / cfg.rays_per_frame,
-                 "ms": {k: [] for k in runs}, "sha256": {}}
-        for k, fn in runs.items():  # warm-up, and the outputs' digest
-            h = hashlib.sha256()
-            for t in fn():
-                if t is not None:
-                    h.update(t.cpu().numpy().tobytes())
-            stats["sha256"][k] = h.hexdigest()[:16]
-        torch.cuda.synchronize()
-        for _ in range(reps):
-            for k, fn in runs.items():
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                torch.cuda.synchronize()
-                stats["ms"][k].append(start.elapsed_time(end))
+                 "rounds_per_path": float(runs["k1"]()[1][:cfg.num_pixels]
+                                          .sum()) / cfg.rays_per_frame}
         log(f"[forward] {name}: {scene.count} spheres, {cfg.rays_per_frame} "
             f"paths, {stats['rounds_per_path']:.3f} executed rounds per path")
-        base = float(np.median(stats["ms"]["k1"]))
-        for k, ms in stats["ms"].items():
-            med = float(np.median(ms))
-            log(f"[forward]   {k:26s} median {med:9.3f} ms ({med / base:6.3f} "
-                f"x k1); outputs sha256 {stats['sha256'][k]}; runs "
-                f"{[round(m, 3) for m in ms]}")
+        _time_runs(name, runs, reps, stats)
         out[name] = stats
+        del runs
+
+    # Both table modes on seeded scenes from a 32 KB to a 224 KB table.
+    cfg = RenderConfig(width=640, height=480, samples_per_pixel=4,
+                       max_depth=8)
+    cam = scenes.rtiow_final_camera(cfg.aspect, device=dev)
+    for n in TABLE_SIZES:
+        scene = random_scene(n, device=dev)
+        table, cam16 = k2._operands(scene, cam)
+        geom, attr = k1._scene_tables(scene)
+        pids = torch.arange(k1.lane_pad(cfg.num_pixels), dtype=torch.int32,
+                            device=dev)
+
+        def run_k1(mode=None):
+            kw = {} if mode is None else {"table_mode": mode}
+            return lambda: k1.render_lanes(
+                geom, attr, cam16, pids, frame_seed(cfg, 1), 0,
+                cfg.samples_per_pixel, cfg.max_depth, cfg.t_min, cfg.width,
+                cfg.height, **kw)
+
+        runs = {"k1": run_k1(), "k1_shared": run_k1("shared"),
+                "k1_global": run_k1("global"),
+                "k4_record": k4_run(table, cam16, cfg, 0, False),
+                "k4_record_shared": k4_run(table, cam16, cfg, 0, False,
+                                           "shared"),
+                "k4_record_global": k4_run(table, cam16, cfg, 0, False,
+                                           "global")}
+        label = f"random_{n}"
+        stats = {"spheres": n, "paths": cfg.rays_per_frame,
+                 "rounds_per_path": float(runs["k1"]()[1][:cfg.num_pixels]
+                                          .sum()) / cfg.rays_per_frame}
+        log(f"[forward] {label}: {n} spheres ({16 * n} B of rows), "
+            f"{cfg.width}x{cfg.height}x{cfg.samples_per_pixel} depth "
+            f"{cfg.max_depth}, {stats['rounds_per_path']:.3f} executed rounds "
+            f"per path")
+        _time_runs(label, runs, reps, stats)
+        out[label] = stats
+        del runs
     return out
 
 
@@ -406,9 +642,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5,
                     help="interleaved rounds of the K3 probes and of the "
                          "forward kernels")
-    ap.add_argument("--parts", default="k3,forward,profile",
+    ap.add_argument("--parts", default="k3,forward,efficiency,profile",
                     help="comma list of the parts to run: k3 (its probes), "
-                         "forward (K1, K2, K4 interleaved), profile")
+                         "forward (K1, K2, K4 interleaved), efficiency (K1's "
+                         "lanes under the two schedules), profile")
     ap.add_argument("--k3-variants", default=",".join(VARIANTS),
                     help="comma list of the K3 variants to time, of "
                          + ", ".join(VARIANTS))
@@ -429,10 +666,12 @@ def main(argv=None) -> int:
     probes, ptxas = (k3_probes(dev, args.reps, variants) if "k3" in parts
                      else ({}, {}))
     forward = forward_kernels(dev, args.reps) if "forward" in parts else {}
+    eff = efficiencies(dev) if "efficiency" in parts else {}
     prof = profile_steps(dev, args.out) if "profile" in parts else {}
     log(smi)
     log(json.dumps({"device": smi, "k3_probes": probes, "k3_ptxas": ptxas,
-                    "forward_kernels": forward, "profile": prof}))
+                    "forward_kernels": forward, "lane_efficiency": eff,
+                    "profile": prof}))
     return 0
 
 

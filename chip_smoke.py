@@ -19,13 +19,19 @@ exit — if any phase fails:
   3. parity at the bench's verify config (240x160, 8 spp, depth 8) on
      rtiow_final and baseline_config2: kernel vs its plain PyTorch twin and
      vs the torch wavefront under parity.COMPILED; a random lane
-     permutation must give a bit-identical kernel image;
+     permutation must give a bit-identical kernel image; each launch's
+     table mode (K1 and K4 stage the sphere rows in shared memory, or read
+     them from device memory above kernels/common.py::forward_table_plan's
+     limit) is recorded;
   4. the reference's own frame (1920x1080, depth 3, reference_scene, 64 spp)
      through Renderer(backend="cuda"): a probe frame, then cached-perm
      frames; finite, and one 16,384-pixel stripe against the twin;
   5. the flagship (1200x800, 256 spp, depth 8, rtiow_final) through
      render_mxu_balanced, timed;
-  6. K1's launch count over phases 4-5 must be > 0;
+  6. K1's launch count over phases 4-5 must be > 0 (staged table); then
+     K1 on the flagship's identity lanes, timed, with its bound from the
+     rounds it ran, and render_mxu on 15,000 seeded spheres (K1's global
+     table: one launch, counted) against the twin;
   7. build: K2 (k2_record), K3 (k3_replay_grad) and K4 (k4_sweep_record),
      one nvcc each, started together, timed, with ptxas registers and spills
      of every instantiation;
@@ -68,6 +74,8 @@ exit — if any phase fails:
      most 2% of residual entries differing, the torch replay of its
      residuals reconstructing its image; K3 on K4's residuals against K3's
      twin (rtol 2e-3); K4's time beside K2's and K1's at the same shape;
+     K1's and K4's global table forced against their shared one on the same
+     inputs (bit-identical outputs);
  14. K2, K4 and K3 in stripe mode against their full launches: 4 stripes of
      the gradient bench's frame, images and residuals bit-identical,
      cotangents summing to the full launch's (rtol 2e-3);
@@ -81,7 +89,9 @@ exit — if any phase fails:
      the flagship frame bit-identical to render_mxu;
      Renderer(backend="cuda-sharded") on the reference frame; the group is
      destroyed;
- 16. K4's, K2's, K3's and K1's launch counts over phase 15 must be > 0;
+ 16. K4's, K2's, K3's and K1's launch counts over phase 15 must be > 0
+     (K4's staged table); then render_sweep_record on the 15,000 seeded
+     spheres (K4's global table: one launch, counted) against the twin;
  17. the native IO library (csrc/brt_native.cpp) built with the host's C++
      compiler at first use; the run fails if it does not build here;
  18. K2's cluster-culled traversal (cluster size 12, 41 clusters on
@@ -116,7 +126,10 @@ exit — if any phase fails:
      multiply-add); P2 1e-5 of the largest entry (the order of the sum over
      K = 16), with torch.backends.cuda.matmul.allow_tf32 False; P3, P4
      (value and row) and P5 exact.  Each beside the one PyTorch call that
-     computes the same function, where there is one (library_ms);
+     computes the same function, where there is one (library_ms); and the
+     device-side durations of the kernel and the library call
+     (torch.profiler's CUDA trace, 50 calls), which the host's launch path
+     does not inflate;
  24. `tools.fp32_probe.main([])`: V1, V2 (float32 and bfloat16) and V3 (prod,
      nosqrt, nobranch, smem) at the reference's shape (256 spheres, 1,024
      rays, 4,000 rounds) and at the card-filling shape (270,336 rays, 400
@@ -188,6 +201,30 @@ def cuda_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def device_ms(fn, reps):
+    """Mean device-side milliseconds of fn() over `reps` calls: the summed
+    durations of the kernels (and memsets) the calls ran, from
+    torch.profiler's CUDA trace, so neither the host's launch path nor the
+    gaps between launches count.  -> (ms or None where the trace holds no
+    device activity, the names of what ran)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    total_us = sum(e.self_device_time_total for e in rows)
+    return (total_us / 1e3 / reps if rows else None), sorted(
+        e.key[:60] for e in rows)
 
 
 # The card's published peaks (H100 SXM data sheet): float32 outside the
@@ -274,28 +311,6 @@ def kernel_entry(name, source, replaces, launches, ks, library_ms=None):
             "library_ms": library_ms, "checks": ks}
 
 
-def random_scene(n, seed=0):
-    """A seeded scene of `n` spheres on the card: the RTiOW ground and
-    n - 1 small spheres of mixed materials scattered over it, denser than
-    rtiow_final's (tables larger than a block's shared memory)."""
-    import numpy as np
-
-    from bevy_raytrace_tpu_torch.core.types import make_scene
-
-    rng = np.random.default_rng(seed)
-    m = n - 1
-    r = rng.uniform(0.05, 0.25, m)
-    xz = rng.uniform(-11.0, 11.0, (m, 2))
-    centers = np.concatenate([[[0.0, -1000.0, 0.0]],
-                              np.stack([xz[:, 0], r, xz[:, 1]], 1)])
-    return make_scene(
-        centers, np.concatenate([[1000.0], r]), np.arange(n),
-        np.concatenate([[[0.5, 0.5, 0.5]], rng.uniform(0.1, 0.9, (m, 3))]),
-        np.concatenate([[0], rng.choice(3, m, p=[0.7, 0.2, 0.1])]),
-        np.concatenate([[0.0], rng.uniform(0.0, 0.5, m)]),
-        np.full(n, 1.5))
-
-
 def gradient_phases(dev, smi):
     """Phases 7-12: K2 and K3, and the inverse-rendering path through them.
     Returns (K2's and K3's launch counts over the path, extra stats, and
@@ -320,7 +335,10 @@ def gradient_phases(dev, smi):
     from bevy_raytrace_tpu_torch.kernels import record as k2
     from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare, grad_close
-    from bevy_raytrace_tpu_torch.profile_grad import cli_inverse_problem
+    from bevy_raytrace_tpu_torch.profile_grad import (
+        cli_inverse_problem,
+        random_scene,
+    )
 
     # ---- 7. build K2 and K3 ----------------------------------------------
     names = ["k2_record", "k3_replay_grad", "k4_sweep_record"]
@@ -525,7 +543,7 @@ def gradient_phases(dev, smi):
     k2_check("random 15000 spheres 64x48x2 depth 3", huge_table, huge_cam16,
              huge, k1_rounds(huge_scene, huge_cam, huge, 1),
              record_second=True)
-    del res, huge_table
+    del res
 
     # ---- 10. inverse rendering at the CLI's size --------------------------
     k2.record_frame.launches = 0
@@ -641,7 +659,10 @@ def gradient_phases(dev, smi):
               "sl_cam16": sl_cam16, "sl_rounds": sl_rounds, "big": big,
               "cam_big": cam_big, "flagship_grad": flagship_grad,
               "g_full": g_full, "k3_check": k3_check, "k2_check": k2_check,
-              "checks": checks, "inverse_scene": rest.scene}
+              "checks": checks, "inverse_scene": rest.scene,
+              "huge_cfg": huge, "huge_scene": huge_scene,
+              "huge_cam": huge_cam,
+              "huge_operands": (huge_table, huge_cam16)}
     return launches, stats, shared
 
 
@@ -665,6 +686,9 @@ def sharded_phases(dev, smi, shared, ref):
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
     from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
     from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
+    from bevy_raytrace_tpu_torch.kernels.sweep_record import (
+        render_sweep_record,
+    )
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare, grad_close
     from bevy_raytrace_tpu_torch.shard import (
         initialize_multihost,
@@ -686,6 +710,7 @@ def sharded_phases(dev, smi, shared, ref):
         """K4 vs its twin on one input: image under COMPILED, at most 2% of
         residual entries differing.  Returns the kernel's outputs."""
         kw = dict(sample_base=sample_base, record_second=record_second)
+        mode = k4.forward_table_mode("k4_sweep_record", dev, table.shape[0])
         ms, (img, res, res2) = cuda_ms(
             lambda: k4.sweep_record_frame(table, cam16, cfg, 1, **kw), 3)
         plain_ms, (pimg, pres, pres2) = cuda_ms(
@@ -694,9 +719,9 @@ def sharded_phases(dev, smi, shared, ref):
         img_vs = compare(img.cpu().numpy(), pimg.cpu().numpy(), COMPILED)
         off = [float((a != b).float().mean())
                for a, b in ((res, pres), (res2, pres2)) if a is not None]
-        log(f"[k4] {label}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms; "
-            f"image vs twin {img_vs}; residuals differing: "
-            f"{[f'{o:.5%}' for o in off]}")
+        log(f"[k4] {label}: kernel ({mode} table) {ms:.3f} ms, twin "
+            f"{plain_ms:.1f} ms; image vs twin {img_vs}; residuals "
+            f"differing: {[f'{o:.5%}' for o in off]}")
         check(img_vs["ok"], f"K4 {label}: image vs twin {img_vs}")
         check(all(o <= 0.02 for o in off),
               f"K4 {label}: residuals differ from the twin's on {off}")
@@ -705,7 +730,7 @@ def sharded_phases(dev, smi, shared, ref):
         check(bool((res[dead] == -1).all()),
               f"K4 {label}: a dead path's later bounce is not -1")
         checks["k4"].append({
-            "shape": label, "max_abs_err": img_vs["max_abs_err"],
+            "shape": label, "mode": mode, "max_abs_err": img_vs["max_abs_err"],
             "residuals_off": off, "ms": ms, "plain_ms": plain_ms,
             **forward_bound("k4", table.shape[0], cfg.num_pixels,
                             cfg.samples_per_pixel, cfg.max_depth, rounds,
@@ -745,6 +770,27 @@ def sharded_phases(dev, smi, shared, ref):
                   "k4_record": checks["k4"][1]["ms"]}
     log(f"[k4] {bench}, the same paths: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in forward_ms.items()) + f" on {smi}")
+
+    # Each kernel's global table forced once against its staged table on
+    # the same inputs: the same bits.
+    k1_args = (geom, attr, cam16, pids, frame_seed(cfg, 1), 0,
+               cfg.samples_per_pixel, cfg.max_depth, cfg.t_min, cfg.width,
+               cfg.height)
+    forced = {}
+    for name, run in (
+            ("k1", lambda m: k1.render_lanes(*k1_args, table_mode=m)),
+            ("k4", lambda m: k4.sweep_record_frame(
+                table, cam16, cfg, 1, record_second=True, table_mode=m))):
+        glob_ms, glob = cuda_ms(lambda: run("global"), 3)
+        shared_ms, staged = cuda_ms(lambda: run("shared"), 3)
+        same = all(torch.equal(a, b) for a, b in zip(glob, staged))
+        forced[name] = {"global_ms": glob_ms, "shared_ms": shared_ms,
+                        "bit_identical": same}
+        log(f"[{name}] {bench}: global table forced {glob_ms:.3f} ms, shared "
+            f"{shared_ms:.3f} ms; bit-identical outputs: {same}")
+        check(same, f"{name}: the global table's outputs differ from the "
+                    f"shared table's")
+        del glob, staged
 
     # ---- 14. stripe modes against the full launches -----------------------
     n = cfg.num_pixels
@@ -826,6 +872,7 @@ def sharded_phases(dev, smi, shared, ref):
     for wrapper in (k1.render_lanes, k2.record_frame, k3.replay_grad,
                     k4.sweep_record_frame):
         wrapper.launches = 0
+    k4.sweep_record_frame.launches_global = 0
 
     sharded = {}
     for forward in ("pallas", "sweep"):
@@ -876,6 +923,9 @@ def sharded_phases(dev, smi, shared, ref):
                 "k2": k2.record_frame.launches,
                 "k3": k3.replay_grad.launches,
                 "k4": k4.sweep_record_frame.launches}
+    k4_modes = {"shared": launches["k4"]
+                - k4.sweep_record_frame.launches_global,
+                "global": k4.sweep_record_frame.launches_global}
     dist.destroy_process_group()
     # The unsharded renders they are held against (launched after the
     # path's counts were read).
@@ -891,10 +941,39 @@ def sharded_phases(dev, smi, shared, ref):
     del flag_img
 
     # ---- 16. launches -----------------------------------------------------
-    log(f"[launches] over the sharded path: {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel was not launched by the sharded path: {launches}")
+    log(f"[launches] over the sharded path: {launches}; K4 by table mode "
+        f"{k4_modes}")
+    check(all(v > 0 for v in launches.values()) and k4_modes["shared"] > 0,
+          f"a kernel was not launched by the sharded path: {launches}, "
+          f"{k4_modes}")
+
+    # K4's global table on its entry point: 15,000 seeded spheres through
+    # render_sweep_record, counted, and held against the twin.
+    huge_cfg = shared["huge_cfg"]
+    huge_scene, huge_cam = shared["huge_scene"], shared["huge_cam"]
+    k4.sweep_record_frame.launches = 0
+    k4.sweep_record_frame.launches_global = 0
+    img, res, res2 = render_sweep_record(huge_scene, huge_cam, huge_cfg, 1,
+                                         record_second=True)
+    huge_counts = (k4.sweep_record_frame.launches,
+                   k4.sweep_record_frame.launches_global)
+    k4_modes["global"] += huge_counts[1]
+    table, cam16 = shared["huge_operands"]
+    pimg, pres, pres2 = k4.sweep_record_frame_plain(table, cam16, huge_cfg, 1,
+                                                    record_second=True)
+    huge_vs = compare(img.cpu().numpy(), pimg.cpu().numpy(), COMPILED)
+    off = [float((a != b).float().mean())
+           for a, b in ((res, pres), (res2, pres2))]
+    log(f"[k4] render_sweep_record on 15000 spheres {huge_cfg.width}x"
+        f"{huge_cfg.height}x2 depth 3: launches (K4, global) {huge_counts}; "
+        f"image vs twin {huge_vs}; residuals differing {off}")
+    check(huge_counts == (1, 1) and huge_vs["ok"]
+          and all(o <= 0.02 for o in off),
+          f"K4's global table: launches {huge_counts}, vs twin {huge_vs}, "
+          f"residuals {off}")
+    launches["k4_modes"] = k4_modes
     return launches, {"forward_ms_grad_bench": forward_ms,
+                      "forced_table_modes": forced,
                       "flagship_grad_sweep_s": sweep_s,
                       "flagship_grad_sweep_vs_pallas": {
                           "trimmed_98_max_err": trimmed, "p99_abs": p99},
@@ -1404,7 +1483,7 @@ def tool_phases(dev, smi):
     ref = {k: tuple(torch.from_numpy(v).to(dev) for v in ops)
            for k, ops in proto_probes.reference_inputs().items()}
     checks = {k: [] for k in ("p1", "p2", "p3", "p4", "p5", "v1", "v2", "v3")}
-    library = {}
+    library, library_device = {}, {}
 
     def p_check(key, label, wrapper, plain, operands, flops, nbytes,
                 rtol=0.0, atol=0.0, lib=None):
@@ -1425,14 +1504,22 @@ def tool_phases(dev, smi):
                   f"(rtol {rtol}, atol {atol})")
         if callable(flops):
             flops = flops(got)
+        dev_ms, names = device_ms(lambda: wrapper(*operands), 50)
         entry = {"shape": label, "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain_ms, **bound(flops, nbytes)}
-        line = (f"[probes] {label}: kernel {ms * 1e3:.2f} us, plain version "
-                f"{plain_ms * 1e3:.2f} us, bound {entry['bound_ms'] * 1e3:.3f}"
-                f" us ({entry['bound_by']}); max abs err {err:.3e}")
+                 "device_ms": dev_ms, "plain_ms": plain_ms,
+                 **bound(flops, nbytes)}
+        line = (f"[probes] {label}: kernel {ms * 1e3:.2f} us (device-side "
+                f"{'not measured' if dev_ms is None else f'{dev_ms * 1e3:.2f} us'}"
+                f": {names}), plain version {plain_ms * 1e3:.2f} us, bound "
+                f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}); max "
+                f"abs err {err:.3e}")
         if lib is not None:
             library[key], _ = cuda_ms(lib, 200)
-            line += f"; library call {library[key] * 1e3:.2f} us"
+            library_device[key], lib_names = device_ms(lib, 50)
+            lib_dev = library_device[key]
+            line += (f"; library call {library[key] * 1e3:.2f} us (device-"
+                     f"side {'not measured' if lib_dev is None else f'{lib_dev * 1e3:.2f} us'}"
+                     f": {lib_names})")
         log(line + f" on {smi}")
         checks[key].append(entry)
         return got
@@ -1633,6 +1720,12 @@ def tool_phases(dev, smi):
             ("v1", "v1_sweep", "fp32_probe.cu", "vpu_probe", 31),
             ("v2", "v2_fma", "fp32_probe.cu", "vpu_probe", 69),
             ("v3", "v3_sweep", "fp32_probe.cu", "vpu_probe", 114))]
+    for entry, key in zip(entries, ("p1", "p2", "p3", "p4", "p5")):
+        # Device-side durations (torch.profiler): the headline `ms` of a
+        # probe is a mean over back-to-back launches through ctypes, which
+        # sits on the host's launch floor.
+        entry["device_ms"] = checks[key][0]["device_ms"]
+        entry["library_device_ms"] = library_device.get(key)
     log(f"[launches] over the tool path (phases 23-25): {launches}")
     return entries, launches, {
         "probe_build_s": build_s, "tool_leg_launches": legs,
@@ -1654,7 +1747,7 @@ def main() -> int:
     from bevy_raytrace_tpu_torch.kernels import build
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare
-    from bevy_raytrace_tpu_torch.profile_grad import smi_line
+    from bevy_raytrace_tpu_torch.profile_grad import random_scene, smi_line
     from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render
 
@@ -1705,6 +1798,7 @@ def main() -> int:
         pids = torch.arange(k1.lane_pad(verify.num_pixels), dtype=torch.int32,
                             device=dev)
         args = lane_args(scene, cam, verify, pids)
+        mode = k1.forward_table_mode("k1_render", dev, scene.count)
         kern_ms, (fb, _) = cuda_ms(lambda: k1.render_lanes(*args), 5)
         plain_ms, (fb_plain, _) = cuda_ms(
             lambda: k1.render_lanes_plain(*args), 1, warm=False)
@@ -1712,15 +1806,15 @@ def main() -> int:
         kimg = image(fb, verify)
         vs_twin = compare(kimg, image(fb_plain, verify), COMPILED)
         vs_wave = compare(kimg, wave, COMPILED)
-        log(f"[verify] {name}: kernel {kern_ms:.3f} ms, twin {plain_ms:.1f} ms; "
-            f"vs twin {vs_twin}; vs wavefront {vs_wave}")
+        log(f"[verify] {name}: kernel ({mode} table) {kern_ms:.3f} ms, twin "
+            f"{plain_ms:.1f} ms; vs twin {vs_twin}; vs wavefront {vs_wave}")
         check(vs_twin["ok"], f"{name}: kernel vs twin {vs_twin}")
         check(vs_wave["ok"], f"{name}: kernel vs torch wavefront {vs_wave}")
         perm = torch.randperm(verify.num_pixels, device=dev).to(torch.int32)
         check(torch.equal(k1.render_mxu(scene, cam, verify, perm=perm),
                           k1.render_mxu(scene, cam, verify)),
               f"{name}: a random perm changed the kernel image")
-        verify_times[name] = (kern_ms, plain_ms)
+        verify_times[name] = (kern_ms, plain_ms, mode)
 
     # ---- 4a. K1 vs twin on the reference frame's lanes -------------------
     ref_cfg = RenderConfig(width=1920, height=1080, samples_per_pixel=64,
@@ -1730,19 +1824,20 @@ def main() -> int:
     ref_pids = torch.arange(k1.lane_pad(ref_cfg.num_pixels), dtype=torch.int32,
                             device=dev)
     args = lane_args(ref_scene, ref_cam, ref_cfg, ref_pids)
+    ref_mode = k1.forward_table_mode("k1_render", dev, ref_scene.count)
     ref_ms, (fb, ln) = cuda_ms(lambda: k1.render_lanes(*args), 5)
     ref_rounds = float(ln[:ref_cfg.num_pixels].sum())
     plain_ms, (fb_plain, _) = cuda_ms(lambda: k1.render_lanes_plain(*args), 1,
                                       warm=False)
     ref_vs_twin = compare(image(fb, ref_cfg), image(fb_plain, ref_cfg),
                           COMPILED)
-    log(f"[reference] kernel {ref_ms:.3f} ms, twin {plain_ms:.1f} ms, "
-        f"{ref_scene.count} spheres; vs twin {ref_vs_twin}")
+    log(f"[reference] kernel ({ref_mode} table) {ref_ms:.3f} ms, twin "
+        f"{plain_ms:.1f} ms, {ref_scene.count} spheres; vs twin {ref_vs_twin}")
     check(ref_vs_twin["ok"], f"reference frame: kernel vs twin {ref_vs_twin}")
     del fb_plain
 
     # ---- 4. the main path: Renderer sessions + the flagship --------------
-    k1.render_lanes.launches = 0
+    k1.render_lanes.launches = k1.render_lanes.launches_global = 0
     r = Renderer(ref_cfg)  # the defaults: backend "cuda" on the card
     check(r.backend == "cuda" and r.device.type == "cuda",
           "Renderer's defaults are not the CUDA kernel on the card")
@@ -1771,6 +1866,8 @@ def main() -> int:
         torch.cuda.synchronize()
         flag_s.append(time.perf_counter() - t0)
     launches = k1.render_lanes.launches
+    k1_modes = {"shared": launches - k1.render_lanes.launches_global,
+                "global": k1.render_lanes.launches_global}
     check(tuple(flag.shape) == (800, 1200, 3) and bool(
         torch.isfinite(flag).all()), "flagship image not finite")
     flag_rps = flag_cfg.rays_per_frame / min(flag_s)
@@ -1790,11 +1887,52 @@ def main() -> int:
     check(stripe_vs["ok"], f"reference stripe vs twin {stripe_vs}")
 
     # ---- 6. launches ------------------------------------------------------
-    log(f"[launches] k1_render launches={launches} over the main path")
-    check(launches > 0, "K1 was not launched by the main path")
+    log(f"[launches] k1_render launches={launches} ({k1_modes}) over the "
+        f"main path")
+    check(launches > 0 and k1_modes["shared"] > 0,
+          "K1 (staged table) was not launched by the main path")
+
+    # The flagship frame's K1 time on identity lanes and its bound, from the
+    # rounds this launch executed.
+    flag_pids = torch.arange(k1.lane_pad(flag_cfg.num_pixels),
+                             dtype=torch.int32, device=dev)
+    flag_args = lane_args(flag_scene, flag_cam, flag_cfg, flag_pids)
+    flag_ms, (_, ln) = cuda_ms(lambda: k1.render_lanes(*flag_args), 2)
+    k1_flagship = {"ms": flag_ms, "rounds": float(ln.sum()),
+                   **forward_bound("k1", flag_scene.count,
+                                   flag_cfg.num_pixels,
+                                   flag_cfg.samples_per_pixel,
+                                   flag_cfg.max_depth, float(ln.sum()))}
+    log(f"[flagship] K1 on identity lanes {flag_ms:.3f} ms, "
+        f"{k1_flagship['rounds'] / flag_cfg.rays_per_frame:.4f} rounds per "
+        f"path, bound {k1_flagship['bound_ms']:.3f} ms "
+        f"({k1_flagship['bound_ms'] / flag_ms:.1%}) on {smi}")
+    del ln
+
+    # K1's global table on the same entry point: 15,000 seeded spheres
+    # (240,000 bytes of rows, above what a block may stage), counted, and
+    # held against the twin.
+    huge_cfg = RenderConfig(width=64, height=48, samples_per_pixel=2,
+                            max_depth=3)
+    huge_scene = random_scene(15000, seed=1)
+    huge_cam = scenes.rtiow_final_camera(huge_cfg.aspect)
+    k1.render_lanes.launches = k1.render_lanes.launches_global = 0
+    huge_img = k1.render_mxu(huge_scene, huge_cam, huge_cfg)
+    huge_counts = (k1.render_lanes.launches, k1.render_lanes.launches_global)
+    k1_modes["global"] += huge_counts[1]
+    huge_pids = torch.arange(k1.lane_pad(huge_cfg.num_pixels),
+                             dtype=torch.int32, device=dev)
+    fb_h, _ = k1.render_lanes_plain(*lane_args(huge_scene, huge_cam, huge_cfg,
+                                               huge_pids))
+    huge_vs = compare(huge_img.cpu().numpy(), image(fb_h, huge_cfg), COMPILED)
+    log(f"[k1] render_mxu on 15000 spheres {huge_cfg.width}x"
+        f"{huge_cfg.height}x2 depth 3: launches (K1, global) {huge_counts}; "
+        f"vs twin {huge_vs}")
+    check(huge_counts == (1, 1) and huge_vs["ok"],
+          f"K1's global table: launches {huge_counts}, vs twin {huge_vs}")
 
     k1_check = {
-        "shape": "reference frame 1920x1080x64 depth 3",
+        "shape": "reference frame 1920x1080x64 depth 3", "mode": ref_mode,
         "max_abs_err": ref_vs_twin["max_abs_err"], "ms": ref_ms,
         "plain_ms": plain_ms,
         **forward_bound("k1", ref_scene.count, ref_cfg.num_pixels,
@@ -1827,6 +1965,16 @@ def main() -> int:
         entry["launches_cli_path"] = cli_launches[key]
         entry["launches_tool_path"] = tool_launches[key]
     entries[1]["launches_cli_path_clustered"] = cli_launches["k2_clustered"]
+    # K1's and K4's table modes: the staged table on their main paths
+    # (phases 4-5, 15), the global one on the 15,000-sphere scene through
+    # the same entry points (render_mxu, render_sweep_record).
+    entries[0]["launches_by_mode"] = k1_modes
+    entries[3]["launches_by_mode"] = shard_launches["k4_modes"]
+    entries[0]["flagship_frame"] = k1_flagship
+    for entry in (entries[0], entries[3]):
+        check(all(v > 0 for v in entry["launches_by_mode"].values()),
+              f"a {entry['name']} table mode was launched on no path: "
+              f"{entry['launches_by_mode']}")
     # K3's table modes: the shared table over phases 10-11, the global one
     # on the large-scene gradient (both paths through make_fast_renderer).
     entries[2]["launches_by_mode"] = grad_launches["k3_modes"]
