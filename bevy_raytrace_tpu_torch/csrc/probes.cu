@@ -15,10 +15,12 @@
 //   P5  replaces p5_onehot_gather    (tools/proto_mxu.py:116)
 //
 // What bounds them on an H100: bytes, all five (the largest, P2, writes 4 MB;
-// P4 and P5 read 2 MB).  At these shapes (1,024 lanes or columns: 8 blocks of
-// 128 threads on a card of 132 SMs) none comes near that bound: each is a few
-// microseconds of latency, and a launch costs about as much.  They are probes
-// of constructs, not of rates; the rate probes are in fp32_probe.cu.
+// P4 and P5 read 2 MB).  At these shapes (1,024 lanes or columns) none comes
+// near that bound: each is a few microseconds of latency, and a launch costs
+// about as much.  P1-P4 take a thread per lane or column (8 blocks of 128
+// threads for P4, on a card of 132 SMs); P5 spreads its rows over 128 blocks
+// (below).  They are probes of constructs, not of rates; the rate probes are
+// in fp32_probe.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
 // --use_fast_math, --fmad at its default (a*b+c contracts to fma).
@@ -154,40 +156,86 @@ __global__ void __launch_bounds__(128)
 
 // ---- P5 ---------------------------------------------------------------------
 // out[A, R] = attr[A, S] @ (packed[S, R] == m[R]): per column, the sum of the
-// attribute columns of the rows whose entry equals m (one row normally; a tie
-// sums, as the one-hot product does).  A thread per column; attr is staged in
-// shared memory once per block, transposed to [S][A] so that a matching row's
-// 16 attributes are four float4 reads and no warp strides by S floats.
+// attribute columns of the rows whose key equals m (one row normally; a tie
+// sums, as the one-hot product does).
+//
+// What bounds it: latency, not bytes.  The 2 MB of keys at the tool's shape
+// (S = 512, R = 1,024) are about what the card's memory system holds in
+// flight at once, so the design puts every key load in flight together and
+// keeps nothing else on the way:
+//   * a block takes kP5Cols (8) columns, one 32-byte sector of a row, and its
+//     kP5Threads (128) threads split the rows, kP5Rows (32) consecutive rows a
+//     thread (a chunk); that gives R / 8 blocks, 128 at the tool's shape;
+//   * a thread issues its kP5Rows loads before any compare (unrolled, no branch
+//     between them) and keeps one bit a row: the chunk's match mask, in
+//     shared memory;
+//   * after a barrier a warp gathers a column: its lanes read the column's
+//     chunk masks, a ballot finds the chunks that matched, and lane a < 16
+//     adds attr[a, row] for each matching row, straight from device memory
+//     and only there.  Rows are taken in ascending order (chunk, then bit),
+//     so a tie of rows a < b < c sums as ((0 + a) + b) + c, and a single
+//     match is exact (0 + v).  No float atomics: the bits do not depend on
+//     timing.
+// Rows come in slabs of kP5Threads / kP5Cols chunks (one slab at S = 512), the
+// mask table is fixed (576 bytes), and a column's sums stay in its warp's
+// registers across slabs: any S runs.  Against 4, 16 or 32 columns a block,
+// 8 or 16 rows a thread and 256 or 512 threads, this shape was the fastest
+// on an H100 (PERF.md).
 constexpr int kP5Attrs = 16;
+constexpr int kP5Cols = 8, kP5Rows = 32, kP5Threads = 128;
+constexpr int kP5Warps = kP5Threads / 32;
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kP5Threads)
     p5_gather_kernel(const int* __restrict__ packed, const int* __restrict__ m,
                      const float* __restrict__ attr, float* __restrict__ out,
                      int s, int r) {
-  extern __shared__ float4 attr_t[];  // [s][4] float4 = [s][16] float
-  float* flat = reinterpret_cast<float*>(attr_t);
-  for (int e = threadIdx.x; e < kP5Attrs * s; e += blockDim.x)
-    flat[(e % s) * kP5Attrs + e / s] = attr[e];  // attr[a][row], coalesced
-  __syncthreads();
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= r) return;
-  const int want = m[col];
-  float acc[kP5Attrs] = {};
-  for (int i = 0; i < s; ++i) {
-    if (packed[static_cast<size_t>(i) * r + col] == want) {
+  constexpr int kChunks = kP5Threads / kP5Cols;  // chunks a slab
+  constexpr int kSlab = kChunks * kP5Rows;       // rows a slab
+  static_assert(kChunks <= 32 && kP5Rows <= 32 && kP5Cols % kP5Warps == 0,
+                "a lane per chunk, a bit per row, whole columns a warp");
+  __shared__ unsigned hits[kChunks][kP5Cols + 1];  // padded: no bank conflicts
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = threadIdx.x % kP5Cols, chunk = threadIdx.x / kP5Cols;
+  const int col = blockIdx.x * kP5Cols + c;
+  const bool live = col < r;
+  const int want = live ? __ldg(m + col) : 0;
+  float acc[kP5Cols / kP5Warps] = {};  // lane a < 16: attribute a of a column
+  for (int slab = 0; slab < s; slab += kSlab) {
+    const int row0 = slab + chunk * kP5Rows;
+    int key[kP5Rows];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 v = attr_t[i * 4 + q];
-        acc[4 * q + 0] += v.x;
-        acc[4 * q + 1] += v.y;
-        acc[4 * q + 2] += v.z;
-        acc[4 * q + 3] += v.w;
+    for (int j = 0; j < kP5Rows; ++j)
+      key[j] = live && row0 + j < s
+                   ? __ldg(packed + static_cast<size_t>(row0 + j) * r + col)
+                   : 0;
+    unsigned bits = 0u;
+#pragma unroll
+    for (int j = 0; j < kP5Rows; ++j)
+      bits |= (live && row0 + j < s && key[j] == want) ? 1u << j : 0u;
+    hits[chunk][c] = bits;
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kP5Cols / kP5Warps; ++q) {
+      const unsigned mine = lane < kChunks ? hits[lane][warp + q * kP5Warps]
+                                           : 0u;
+      for (unsigned any = __ballot_sync(~0u, mine != 0u); any;
+           any &= any - 1) {
+        const int k = __ffs(any) - 1;
+        for (unsigned b = __shfl_sync(~0u, mine, k); b; b &= b - 1) {
+          const int row = slab + k * kP5Rows + __ffs(b) - 1;
+          if (lane < kP5Attrs)
+            acc[q] += __ldg(attr + static_cast<size_t>(lane) * s + row);
+        }
       }
     }
+    __syncthreads();
   }
 #pragma unroll
-  for (int a = 0; a < kP5Attrs; ++a)
-    out[static_cast<size_t>(a) * r + col] = acc[a];
+  for (int q = 0; q < kP5Cols / kP5Warps; ++q) {
+    const int out_col = blockIdx.x * kP5Cols + warp + q * kP5Warps;
+    if (lane < kP5Attrs && out_col < r)
+      out[static_cast<size_t>(lane) * r + out_col] = acc[q];
+  }
 }
 
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
@@ -236,15 +284,12 @@ extern "C" int brt_p4_min(const void* t, void* t_out, void* row_out, int s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// packed [s, r] int32, m [r] int32, attr [16, s] float -> out [16, r] float;
-// s * 64 bytes of shared memory, so s <= 768.
+// packed [s, r] int32, m [r] int32, attr [16, s] float -> out [16, r] float.
 extern "C" int brt_p5_gather(const void* packed, const void* m,
                              const void* attr, void* out, int s, int r,
                              void* stream) {
-  if (s <= 0 || r <= 0 || s > 768)
-    return static_cast<int>(cudaErrorInvalidValue);
-  p5_gather_kernel<<<(r + 127) / 128, 128,
-                     static_cast<size_t>(s) * kP5Attrs * sizeof(float),
+  if (s <= 0 || r <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  p5_gather_kernel<<<(r + kP5Cols - 1) / kP5Cols, kP5Threads, 0,
                      as_stream(stream)>>>(
       static_cast<const int*>(packed), static_cast<const int*>(m),
       static_cast<const float*>(attr), static_cast<float*>(out), s, r);

@@ -11,16 +11,20 @@ Counterparts of the kernel factories of `tools/vpu_probe.py`:
                  bfloat16, by the operands' type (`fma_kernel`);
   V3 `v3_sweep`  the production sweep, every ray row perturbed by the
                  carry: the nearest hit and its index (`sweep_full_dep`).
-                 Its CUDA loop is K1's own (`brt::sweep_nearest` in
-                 `csrc/common.cuh`; K4 keeps a copy of it).
+                 Its "k1" form runs K1's own loop (`brt::sweep_nearest` in
+                 `csrc/common.cuh`; K4 keeps a copy of it), "prod" the same
+                 tests scheduled for the card.
 
 Operands as the tool's: g [S, 8] (columns 0-3: cx, cy, cz, r^2), r [8, R]
 (rows 0-5: origin, direction), outputs [1, R].  `VARIANTS` names V3's
-forms: "prod" (K1's loop: `disc > 0` branch and rsqrt), "nosqrt" (the
-discriminant in the root's place, no branch on its sign: the tool's),
-"nobranch" (the root of every sphere; a negative discriminant gives NaN,
-which is no hit) and "smem" (prod with the table in shared memory; its
-plain version is prod's).  A ray with no valid hit gives t = NaN, index -1.
+forms: "prod" (K1's arithmetic with the table in shared memory and two
+rays a thread: the same bits as "k1"), "nosqrt" (the discriminant in the
+root's place, no branch on its sign: the tool's), "nobranch" (the root of
+every sphere; a negative discriminant gives NaN, which is no hit), "smem"
+(K1's loop with the table in shared memory, the mode K1 runs at these table
+sizes) and "k1" (K1's loop on its device-memory, global, table).  "prod",
+"smem" and "k1" share one plain version.  A ray with no valid hit gives
+t = NaN, index -1.
 
 Each wrapper checks its operands and, on CUDA tensors, launches its kernel
 and adds one to its `launches`; on CPU tensors it runs the `*_plain` version
@@ -40,8 +44,8 @@ from bevy_raytrace_tpu_torch.kernels.render_lanes import _check
 
 T_MIN = 1e-3
 CARRY_SCALE = 1e-30
-VARIANTS = ("prod", "nosqrt", "nobranch", "smem")
-MAX_SPHERES = 3072  # "smem" keeps 16 bytes a sphere in 48 KB
+VARIANTS = ("prod", "nosqrt", "nobranch", "smem", "k1")
+MAX_SPHERES = 3072  # "prod" and "smem" keep 16 bytes a sphere in 48 KB
 
 # Float operations per (sphere, ray, round), counted from the CUDA source
 # with a fused multiply-add as two.  V1: the discriminant (oc 3, hb 5, cq 6,

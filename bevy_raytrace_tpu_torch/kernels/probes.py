@@ -37,7 +37,7 @@ from bevy_raytrace_tpu_torch.kernels.render_lanes import _check
 LANES = 128
 P1_SHAPE = (8, LANES)
 P2_TILE, P2_K = 64, 16
-P5_ATTRS, P5_MAX_ROWS = 16, 768
+P5_ATTRS = 16
 
 
 def _bind(library, sigs):
@@ -217,15 +217,15 @@ def p5_onehot_gather(packed, m, attr):
     """P5: packed int32 [S, R], m int32 [1, R] (the column keys, normally
     the column minima), attr float32 [16, S] -> attr @ (packed == m)
     [16, R]: per column the sum of the attribute columns of the matching
-    rows.  S <= 768 (attr is staged in shared memory)."""
+    rows, a tie summed in ascending row order."""
     device = packed.device if isinstance(packed, torch.Tensor) else None
     _check("packed", packed, torch.int32, (None, None), device)
     s, r = packed.shape
     _check("m", m, torch.int32, (1, r), device)
     _check("attr", attr, torch.float32, (P5_ATTRS, s), device)
-    if s == 0 or r == 0 or s > P5_MAX_ROWS:
-        raise ValueError(f"P5 takes 1..{P5_MAX_ROWS} rows and at least one "
-                         f"column, got {s}x{r}")
+    if s == 0 or r == 0:
+        raise ValueError(f"P5 takes at least one row and one column, got "
+                         f"{s}x{r}")
     if device.type == "cpu":
         return p5_onehot_gather_plain(packed, m, attr)
     out = torch.empty((P5_ATTRS, r), dtype=torch.float32, device=device)

@@ -20,14 +20,16 @@ With no shape given it runs two:
     rates say little about the card;
   * a card-filling shape, R = 132 x 2048 = 270,336 rays (every SM's 2,048
     thread slots), 400 rounds: every kernel and V3 variant at S = 256 on the
-    reference's inputs, and V3 "prod" on two scenes' own sphere tables and
-    camera rays, reference_scene (197 spheres, 1920x1080) and rtiow_final
-    (486 spheres, 1200x800), with the rays three ways: in raster order (a
-    warp's rays are neighbours, as K1's primary rays), one ray for all 32
-    lanes of a warp (no divergence at all), and shuffled (as after a few
-    bounces).  These are the rates.
+    reference's inputs, and V3 "prod" and "k1" on two scenes' own sphere
+    tables and camera rays, reference_scene (197 spheres, 1920x1080) and
+    rtiow_final (486 spheres, 1200x800), with the rays three ways: in raster
+    order (a warp's rays are neighbours, as K1's primary rays), one ray for
+    all 32 lanes of a warp (no divergence at all), and shuffled (as after a
+    few bounces); "smem" in raster order.  These are the rates.
 It also times V1 and V3 at twice the rounds: a ratio near 2 shows that the
-compiler neither hoisted nor dropped the inner loop.
+compiler neither hoisted nor dropped the inner loop.  Every row carries a
+SHA-256 of its outputs (`sha256`): "prod", "smem" and "k1" must agree on
+each input, bit for bit.
 
 On the CPU (`--device cpu`) the plain versions run and only host
 milliseconds are printed: a rate of the card is measured on the card.
@@ -37,6 +39,7 @@ milliseconds are printed: a rate of the card is measured on the card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import sys
 import time
 
@@ -129,13 +132,16 @@ def measure(name, kind, fn, device, spheres, rays, iters, dtype="float32",
     """One row: `fn()` timed, with its rate where it ran on the card."""
     from bevy_raytrace_tpu_torch.kernels.fp32_probe import OPS
 
-    ms, _ = _time_ms(fn, device)
+    ms, out = _time_ms(fn, device)
     tests = spheres * rays * iters
+    sha = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        sha.update(t.cpu().numpy().tobytes())
     row = {"name": name, "kind": kind, "dtype": dtype, "spheres": spheres,
            "rays": rays, "iters": iters, "rays_as": rays_as, "ms": ms,
-           "device": str(device)}
+           "device": str(device), "sha256": sha.hexdigest()[:16]}
     line = (f"{name:14s} S={spheres:<4d} R={rays:<7d} x{iters:<5d} "
-            f"{rays_as:22s} {ms:9.3f} ms")
+            f"{rays_as:22s} {ms:9.3f} ms  sha256 {row['sha256']}")
     if device.type == "cuda":
         flops = tests * OPS[kind] / (ms * 1e-3)
         row.update(tflops=flops / 1e12, share_of_peak=flops / PEAK[dtype],
@@ -231,20 +237,23 @@ def main(argv=None) -> int:
     g, r = on_device(s, CARD_RAYS)
     run_shape(device, g, r, CARD_ITERS, "reference", vp.VARIANTS, twice=True)
     r_uniform = warp_uniform(r)
-    measure("v3 prod", "v3", lambda: vp.v3_sweep(g, r_uniform, CARD_ITERS),
-            device, s, CARD_RAYS, CARD_ITERS, rays_as="warp-uniform")
+    for variant in ("prod", "k1"):
+        measure(f"v3 {variant}", "v3",
+                lambda variant=variant: vp.v3_sweep(g, r_uniform, CARD_ITERS,
+                                                    variant),
+                device, s, CARD_RAYS, CARD_ITERS, rays_as="warp-uniform")
     for scene in SCENES:
         g, r = scene_inputs(scene, CARD_RAYS, device, args.seed)
         for label, rays in (("raster", r), ("warp-uniform", warp_uniform(r)),
                             ("shuffled", shuffled(r, args.seed))):
-            measure("v3 prod", "v3",
-                    lambda rays=rays: vp.v3_sweep(g, rays, CARD_ITERS),
-                    device, g.shape[0], CARD_RAYS, CARD_ITERS,
-                    rays_as=f"{scene.split('_')[0]} {label}")
-        measure("v3 smem", "v3",
-                lambda: vp.v3_sweep(g, r, CARD_ITERS, "smem"), device,
-                g.shape[0], CARD_RAYS, CARD_ITERS,
-                rays_as=f"{scene.split('_')[0]} raster")
+            variants = ("prod", "k1") + (("smem",) if label == "raster"
+                                         else ())
+            for variant in variants:
+                measure(f"v3 {variant}", "v3",
+                        lambda rays=rays, variant=variant: vp.v3_sweep(
+                            g, rays, CARD_ITERS, variant),
+                        device, g.shape[0], CARD_RAYS, CARD_ITERS,
+                        rays_as=f"{scene.split('_')[0]} {label}")
     over = [x for x in ROWS if x.get("share_of_peak", 0.0) > 1.0]
     if over:
         raise RuntimeError(f"a rate above the card's peak: the operation "

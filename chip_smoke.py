@@ -129,13 +129,15 @@ exit — if any phase fails:
      computes the same function, where there is one (library_ms); and the
      device-side durations of the kernel and the library call
      (torch.profiler's CUDA trace, 50 calls), which the host's launch path
-     does not inflate;
+     does not inflate, with the bound's share of the kernel's;
  24. `tools.fp32_probe.main([])`: V1, V2 (float32 and bfloat16) and V3 (prod,
-     nosqrt, nobranch, smem) at the reference's shape (256 spheres, 1,024
+     nosqrt, nobranch, smem, k1) at the reference's shape (256 spheres, 1,024
      rays, 4,000 rounds) and at the card-filling shape (270,336 rays, 400
-     rounds; V3 also on two scenes' tables with camera rays in raster order,
-     uniform within a warp, and shuffled), launches counted; twice the rounds
-     must take twice the time; no rate may exceed the card's peak.  Then
+     rounds; V3 prod and k1 also on two scenes' tables with camera rays in
+     raster order, uniform within a warp, and shuffled, smem in raster
+     order), launches counted; twice the rounds must take twice the time; no
+     rate may exceed the card's peak; V3 prod's (t, index) must have k1's
+     SHA-256 (and smem's) on every input the tool ran both.  Then
      every kernel and variant against its plain version at the reference's
      shape with 3 rounds: V1's and V3's t to rtol 1e-5 (atol 2e-6: a root is
      a difference of O(1) terms), V3's index equal on all but near-ties (at
@@ -1508,10 +1510,14 @@ def tool_phases(dev, smi):
         entry = {"shape": label, "max_abs_err": err, "ms": ms,
                  "device_ms": dev_ms, "plain_ms": plain_ms,
                  **bound(flops, nbytes)}
+        # The bound's share of the device-side time (of the event time where
+        # the trace holds none).
+        entry["share_of_bound"] = entry["bound_ms"] / (dev_ms or ms)
         line = (f"[probes] {label}: kernel {ms * 1e3:.2f} us (device-side "
                 f"{'not measured' if dev_ms is None else f'{dev_ms * 1e3:.2f} us'}"
                 f": {names}), plain version {plain_ms * 1e3:.2f} us, bound "
-                f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}); max "
+                f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}, "
+                f"{entry['share_of_bound']:.2%} of the kernel's time); max "
                 f"abs err {err:.3e}")
         if lib is not None:
             library[key], _ = cuda_ms(lib, 200)
@@ -1573,12 +1579,41 @@ def tool_phases(dev, smi):
 
     # ---- 24. V1-V3 ----------------------------------------------------------
     rc = counted("tools.fp32_probe", lambda: fp32_tool.main([]),
-                 v1=12, v2=16, v3=72)
+                 v1=12, v2=16, v3=108)
     check(rc == 0, f"tools.fp32_probe exited {rc}")
     rows = list(fp32_tool.ROWS)
     check(all(r["device"].startswith("cuda") and 0.0 < r["share_of_peak"]
               <= 1.0 for r in rows),
           "a probe's rate is missing or above the card's peak")
+    # V3 "prod" (several rays a thread on a staged table) must give K1's
+    # loop's bits ("k1", and "smem", K1's loop on a staged table) on every
+    # input the tool ran: SHA-256 of (t, index) per input and round count.
+    v3_digests = {}
+    for row in rows:
+        if row["name"] in ("v3 prod", "v3 k1", "v3 smem"):
+            key = (row["rays"], row["iters"], row["spheres"], row["rays_as"])
+            v3_digests.setdefault(key, {})[row["name"][3:]] = row["sha256"]
+    for (n_rays, n_iters, n_sph, rays_as), got in v3_digests.items():
+        log(f"[fp32 probe] V3 digests, {n_sph} spheres, {n_rays} rays "
+            f"({rays_as}) x {n_iters} rounds: {got}")
+        check("k1" not in got or len(set(got.values())) == 1,
+              f"V3 prod differs from k1 on {rays_as} x {n_iters}: {got}")
+    card_inputs = {k[3] for k in v3_digests
+                   if k[0] == fp32_tool.CARD_RAYS and "k1" in v3_digests[k]}
+    check({"reference", "reference raster", "rtiow raster"} <= card_inputs,
+          f"V3 prod was not held against k1 on every card-filling input: "
+          f"{sorted(card_inputs)}")
+    v3_speedup = {}
+    for rays_as in sorted(card_inputs):
+        ms = {r["name"][3:]: r["ms"] for r in rows
+              if r["kind"] == "v3" and r["rays"] == fp32_tool.CARD_RAYS
+              and r["iters"] == fp32_tool.CARD_ITERS
+              and r["rays_as"] == rays_as}
+        v3_speedup[rays_as] = {v: ms[v] / ms["prod"] for v in ms
+                               if v in ("k1", "smem")}
+        log(f"[fp32 probe] V3 {rays_as}, card-filling shape: prod "
+            f"{ms['prod']:.3f} ms; time over prod's: {v3_speedup[rays_as]} "
+            f"on {smi}")
 
     g, r = (torch.from_numpy(v).to(dev)
             for v in fp32_tool.reference_inputs(256, 1024))
@@ -1729,6 +1764,7 @@ def tool_phases(dev, smi):
     log(f"[launches] over the tool path (phases 23-25): {launches}")
     return entries, launches, {
         "probe_build_s": build_s, "tool_leg_launches": legs,
+        "v3_time_over_prod": v3_speedup,
         "fp32_probe_rows": rows, "grad_bench_steps": steps,
         "graft_entry_s": entry_s, "graft_entry_vs_k1": entry_vs,
         "graft_dryrun": report, "graft_dryrun_s": dry_s}

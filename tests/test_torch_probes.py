@@ -146,6 +146,34 @@ def test_p4_p5_ties():
     np.testing.assert_array_equal(got[:, 8], attr[:, packed[:, 8].argmin()])
 
 
+def _onehot(packed, attr):
+    """numpy's one-hot product of P5, in float32."""
+    m = packed.min(axis=0, keepdims=True)
+    return m, attr @ (packed == m).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,tie_rows", [
+    ((512, 1024), (3, 500)), ((512, 200), (0, 511)), ((1024, 256), (5, 1000))],
+    ids=["tie_far_apart", "ragged_columns", "rows_1024"])
+def test_p5_ties_and_ragged_shapes(shape, tie_rows):
+    """P5's wrapper against numpy's one-hot product: a two-way tie between
+    rows far apart, R not a multiple of 128, and S = 1,024, which the wrapper
+    refused while the kernel staged `attr` (768 rows at most).  On the CPU
+    this runs the plain version; `test_torch_cuda.py` runs the kernel on the
+    same shapes, where the rows cross its chunks and slabs."""
+    s, r = shape
+    rs = np.random.RandomState(9)
+    packed = rs.randint(1, 1 << 20, (s, r)).astype(np.int32)
+    a, b = tie_rows
+    packed[a, r // 2] = packed[b, r // 2] = 0
+    attr = rs.randn(16, s).astype(np.float32)
+    m, want = _onehot(packed, attr)
+    got = pp.p5_onehot_gather(torch.from_numpy(packed), torch.from_numpy(m),
+                              torch.from_numpy(attr)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, r // 2], attr[:, a] + attr[:, b])
+
+
 # --- V1-V3: the tool's kernel factories at (256, 1024), 3 rounds -------------
 
 
@@ -195,10 +223,19 @@ def _v2_bf16(vpu):
     np.testing.assert_allclose(got, want, rtol=5e-2)
 
 
-def _v3(vpu, variant):
+def _v3(vpu, variant, ports=None):
+    """The reference's `variant` against each of the port's `ports` forms
+    (the same name unless given: "prod" and "k1" are both held against the
+    reference's "prod")."""
     g, r = _inputs(vpu)
     want = _reference(vpu, vpu.sweep_full_dep(variant), g, r)
-    t, idx = vp.v3_sweep(torch.from_numpy(g), torch.from_numpy(r), 3, variant)
+    for port in ports or (variant,):
+        t, idx = vp.v3_sweep(torch.from_numpy(g), torch.from_numpy(r), 3,
+                             port)
+        _v3_check(g, r, variant, want, t, idx)
+
+
+def _v3_check(g, r, variant, want, t, idx):
     assert idx.dtype == torch.int32
     # A ray that hits nothing is NaN on both sides (20 of the 1,024 "prod"
     # rays), and -1 in the port's index.
@@ -225,7 +262,8 @@ def _v3(vpu, variant):
 
 
 @pytest.mark.parametrize("case", [
-    _v1, _v2_f32, _v2_bf16, functools.partial(_v3, variant="prod"),
+    _v1, _v2_f32, _v2_bf16,
+    functools.partial(_v3, variant="prod", ports=("prod", "k1")),
     functools.partial(_v3, variant="nosqrt")],
     ids=["v1", "v2_f32", "v2_bf16", "v3_prod", "v3_nosqrt"])
 def test_rate_probe_matches_reference(monkeypatch, vpu, case):
@@ -234,15 +272,18 @@ def test_rate_probe_matches_reference(monkeypatch, vpu, case):
 
 
 def test_v3_variants_agree_where_they_must():
-    """"smem" is "prod"; "nobranch" differs from "prod" only in how the root
-    is rounded; a ray that hits nothing gives (NaN, -1)."""
+    """The plain path gives "smem" and "k1" "prod"'s formula, bit for bit
+    (on the card `test_torch_cuda.py` holds the three kernels to one
+    another); "nobranch" differs from "prod" only in how the root is
+    rounded; a ray that hits nothing gives (NaN, -1)."""
     rs = np.random.RandomState(5)
     g = torch.from_numpy((rs.rand(64, 8) + 1.0).astype(np.float32))
     r = torch.from_numpy(rs.rand(8, 256).astype(np.float32))
     t, idx = vp.v3_sweep(g, r, 2, "prod")
-    t2, idx2 = vp.v3_sweep(g, r, 2, "smem")
-    torch.testing.assert_close(t2, t, rtol=0, atol=0, equal_nan=True)
-    assert torch.equal(idx, idx2) and bool((idx >= 0).any())
+    for variant in ("smem", "k1"):
+        t2, idx2 = vp.v3_sweep(g, r, 2, variant)
+        assert torch.equal(t2.view(torch.int32), t.view(torch.int32))
+        assert torch.equal(idx, idx2) and bool((idx >= 0).any())
     t3, idx3 = vp.v3_sweep(g, r, 2, "nobranch")
     # sqrt(disc) against disc * rsqrt(disc): an ulp of the O(1) root.
     torch.testing.assert_close(t3, t, rtol=1e-5, atol=1e-6, equal_nan=True)
@@ -293,8 +334,8 @@ def _bad_p5():
             lambda: pp.p5_onehot_gather(p, m, torch.zeros(8, 8)),
             lambda: pp.p5_onehot_gather(p, m, torch.zeros(8, 16).T),
             lambda: pp.p5_onehot_gather(
-                torch.zeros(800, 128, dtype=torch.int32), m,
-                torch.zeros(16, 800))]
+                torch.zeros(0, 128, dtype=torch.int32), m,
+                torch.zeros(16, 0))]
 
 
 def _bad_v(fn, **kw):

@@ -71,12 +71,15 @@ def test_fp32_probe_at_a_tiny_shape(capsys):
     names = [" ".join(ln.split()[:ln.split().index("S=12")])
              for ln in lines[1:]]
     assert names == ["v1 sweep", "v2 fma f32", "v2 fma bf16", "v3 prod",
-                     "v3 nosqrt", "v3 nobranch", "v3 smem"]
+                     "v3 nosqrt", "v3 nobranch", "v3 smem", "v3 k1"]
     # A CPU run states no rate of the card.
     assert not any("TFLOP/s" in ln for ln in lines)
     assert [r["name"] for r in fp32_probe.ROWS] == names
     assert all(r["device"] == "cpu" and r["ms"] > 0 and "tflops" not in r
                for r in fp32_probe.ROWS)
+    # "prod", "smem" and "k1" share one plain version: one digest.
+    sha = {r["name"]: r["sha256"] for r in fp32_probe.ROWS}
+    assert sha["v3 prod"] == sha["v3 smem"] == sha["v3 k1"] != sha["v3 nosqrt"]
     with pytest.raises(SystemExit):
         fp32_probe.main(["--device", "cpu", "--spheres", "12"])
 
@@ -161,3 +164,4 @@ def test_dryrun_multichip_on_gloo():
         reports[1]["train_grad_max"])
     with pytest.raises(ValueError):
         graft_entry.dryrun_multichip(0)
+
