@@ -17,8 +17,8 @@
 // What bounds them on an H100: bytes, all five (the largest, P2, writes 4 MB;
 // P4 and P5 read 2 MB).  At these shapes (1,024 lanes or columns) none comes
 // near that bound: each is a few microseconds of latency, and a launch costs
-// about as much.  P1-P4 take a thread per lane or column (8 blocks of 128
-// threads for P4, on a card of 132 SMs); P5 spreads its rows over 128 blocks
+// about as much.  P1-P3 take a thread per lane or element; P4 and P5 spread
+// their rows over R / 8 blocks, 128 at the tool's shape, 32 rows a thread
 // (below).  They are probes of constructs, not of rates; the rate probes are
 // in fp32_probe.cu.
 //
@@ -27,6 +27,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -124,34 +125,100 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---- P4 ---------------------------------------------------------------------
-// Per column of t [S, R]: the minimum and the row it stands in.  A thread per
-// column walks the rows (neighbouring threads read neighbouring addresses) and
-// keeps a (t, row) register pair; strict <, so the lowest row wins a tie.  The
-// update is two nested `if`s, the form K1's sweep keeps (k1_render.cu).  The
-// TPU kernel packs the row into the low 9 bits of t and takes one integer
-// minimum: a device of that machine, not carried over, so this minimum and
-// this row are exact.
-__global__ void __launch_bounds__(128)
+// Per column of t [S, R]: the minimum and the row it stands in, exact: the
+// lowest row wins a tie, and a NaN never wins against a number (an all-NaN
+// column gives its row 0).  The TPU kernel packs the row into the low 9 bits
+// of t and takes one integer minimum: a device of that machine, not carried
+// over; its key orders NaN above every positive float, which this order
+// keeps.
+//
+// What bounds it: latency, as P5's keys (the same 2 MB at the tool's shape).
+// A thread a column walking the rows waited on one dependent load a row.
+// P5's shape instead: a block takes kP4Cols (8) columns, one 32-byte sector
+// of a row, and its kP4Threads (128) threads split the rows, kP4Rows (32)
+// consecutive rows a thread, all loads issued before any compare; each
+// thread keeps its own (value, row) pair; the 16 chunks of a column are then
+// combined by two shuffles within a warp and through shared memory across
+// the 4 warps.  The pair order (p4_before) is a total order on (value, row)
+// with distinct rows, so the combined pair does not depend on the order of
+// the combination: no float atomics, and the row is exact.  Rows come in
+// slabs of 512 (kP4Chunks chunks); a thread's pair carries across slabs, so
+// any S runs.  Against float2 and float4 loads (2 or 4 columns a thread,
+// 16 or 8 rows) this shape was the fastest on an H100 (PERF.md).
+constexpr int kP4Cols = 8, kP4Rows = 32, kP4Threads = 128;
+constexpr int kP4Chunks = kP4Threads / kP4Cols;  // chunks a slab
+constexpr int kP4Warps = kP4Threads / 32;
+
+// (a, ra) comes before (b, rb): a number before a NaN, then the smaller
+// value, then (equal values, or two NaNs) the lower row.
+__device__ __forceinline__ bool p4_before(float a, int ra, float b, int rb) {
+  const bool an = a != a, bn = b != b;
+  if (an != bn) return bn;
+  return a < b || (!(b < a) && ra < rb);
+}
+
+__global__ void __launch_bounds__(kP4Threads)
     p4_min_kernel(const float* __restrict__ t, float* __restrict__ t_out,
                   int* __restrict__ row_out, int s, int r) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= r) return;
-  float best_t = 0.f;
-  int best = -1;
-  for (int i = 0; i < s; ++i) {
-    const float v = t[static_cast<size_t>(i) * r + col];
-    if (best < 0) {
-      best_t = v;
-      best = i;
-    } else {
-      if (v < best_t) {
-        best_t = v;
-        best = i;
-      }
+  constexpr int kSlab = kP4Chunks * kP4Rows;  // rows a slab
+  static_assert(kP4Cols <= 32 && 32 % kP4Cols == 0, "whole rows a warp");
+  __shared__ float part_t[kP4Warps][kP4Cols];
+  __shared__ int part_row[kP4Warps][kP4Cols];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = threadIdx.x % kP4Cols, chunk = threadIdx.x / kP4Cols;
+  const int col = blockIdx.x * kP4Cols + c;
+  const bool live = col < r;
+  // The pair starts as no row at all, which every row comes before.
+  float best_t = __int_as_float(0x7FFFFFFF);
+  int best = INT_MAX;
+  for (int slab = 0; slab < s; slab += kSlab) {
+    const int row0 = slab + chunk * kP4Rows;
+    const int rows = live ? min(kP4Rows, s - row0) : 0;  // may be <= 0
+    // A pointer stepped a row at a time: indexing t with a 64-bit multiply
+    // a row was far slower on an H100 (PERF.md).
+    const float* p = t + static_cast<size_t>(row0) * r + col;
+    float v[kP4Rows];
+#pragma unroll
+    for (int j = 0; j < kP4Rows; ++j, p += r) v[j] = j < rows ? __ldg(p) : 0.f;
+#pragma unroll
+    for (int j = 0; j < kP4Rows; ++j) {
+      const bool take = j < rows && p4_before(v[j], row0 + j, best_t, best);
+      best_t = take ? v[j] : best_t;
+      best = take ? row0 + j : best;
     }
   }
-  t_out[col] = best_t;
-  row_out[col] = best;
+  // The chunks of a column within a warp: lanes kP4Cols apart.
+#pragma unroll
+  for (int off = kP4Cols; off < 32; off *= 2) {
+    const float ot = __shfl_xor_sync(~0u, best_t, off);
+    const int orow = __shfl_xor_sync(~0u, best, off);
+    if (p4_before(ot, orow, best_t, best)) {
+      best_t = ot;
+      best = orow;
+    }
+  }
+  if (lane < kP4Cols) {
+    part_t[warp][c] = best_t;
+    part_row[warp][c] = best;
+  }
+  __syncthreads();
+  // Across the warps: a thread a column.
+  const int out_col = blockIdx.x * kP4Cols + threadIdx.x;
+  if (threadIdx.x < kP4Cols && out_col < r) {
+    float bt = part_t[0][threadIdx.x];
+    int br = part_row[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kP4Warps; ++w) {
+      const float ot = part_t[w][threadIdx.x];
+      const int orow = part_row[w][threadIdx.x];
+      if (p4_before(ot, orow, bt, br)) {
+        bt = ot;
+        br = orow;
+      }
+    }
+    t_out[out_col] = bt;
+    row_out[out_col] = br;
+  }
 }
 
 // ---- P5 ---------------------------------------------------------------------
@@ -278,7 +345,8 @@ extern "C" int brt_p3_reshape(const void* x, void* out, int rows,
 extern "C" int brt_p4_min(const void* t, void* t_out, void* row_out, int s,
                           int r, void* stream) {
   if (s <= 0 || r <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  p4_min_kernel<<<(r + 127) / 128, 128, 0, as_stream(stream)>>>(
+  p4_min_kernel<<<(r + kP4Cols - 1) / kP4Cols, kP4Threads, 0,
+                  as_stream(stream)>>>(
       static_cast<const float*>(t), static_cast<float*>(t_out),
       static_cast<int*>(row_out), s, r);
   return static_cast<int>(cudaGetLastError());

@@ -62,7 +62,9 @@ def _launchers():
     return _bind("fp32_probe", {
         "brt_v1_sweep": [vp, vp, vp, i32, i32, i32, vp],
         "brt_v2_fma": [vp, vp, vp, i32, i32, i32, i32, vp],
-        "brt_v3_sweep": [vp, vp, vp, vp, i32, i32, i32, i32, vp]})
+        "brt_v3_sweep": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        "brt_v1_root_check": [ctypes.c_uint, ctypes.c_uint, vp, vp, vp,
+                              vp]})
 
 
 def _check_operands(g, r, iters, dtype=torch.float32, min_iters=0):
@@ -107,7 +109,11 @@ def v1_sweep_plain(g, r, iters):
 
 def v1_sweep(g, r, iters: int):
     """V1: g float32 [S, 8], r float32 [8, R] -> 1 + the last round's
-    smallest valid t (3.0 standing for a sphere's miss), [1, R]."""
+    smallest valid t (3.0 standing for a sphere's miss), [1, R].  The
+    kernel sweeps two rays a thread on a staged table and takes the root by
+    MUFU.RSQ and one correction: sqrtf's bits wherever a root can be picked
+    (`v1_root_check`), so the plain version's bits where both round
+    alike."""
     device, s, n = _check_operands(g, r, iters)
     if device.type == "cpu":
         return v1_sweep_plain(g, r, iters)
@@ -118,6 +124,28 @@ def v1_sweep(g, r, iters: int):
 
 
 v1_sweep.launches = 0
+
+
+def v1_root_check(lo: int, hi: int, device="cuda"):
+    """Test-only: the root V1's kernel takes (`v1_root` in
+    `csrc/fp32_probe.cu`) against `__fsqrt_rn` on every float32 bit pattern
+    in [lo, hi) -> (how many differ in any bit, the lowest that does or
+    None, the most units in the last place between the two)."""
+    device = torch.device(device)
+    if device.type != "cuda" or not 0 <= lo < hi <= 1 << 32 or \
+            hi - lo >= 1 << 32:
+        raise ValueError(f"needs a CUDA device and [lo, hi) within 32 bits, "
+                         f"got {device}, [{lo}, {hi})")
+    out = torch.tensor([0, 0xFFFFFFFF, 0], dtype=torch.int64, device=device)
+    fn = _launchers()["brt_v1_root_check"]
+    with torch.cuda.device(device):
+        err = fn(lo, hi - lo, out.data_ptr(), out.data_ptr() + 8,
+                 out.data_ptr() + 16,
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"brt_v1_root_check failed with cudaError_t {err}")
+    count, lowest, ulps = (int(v) for v in out.cpu())
+    return count, (lowest if count else None), ulps
 
 
 # --- V2 ---------------------------------------------------------------------

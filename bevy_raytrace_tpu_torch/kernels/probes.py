@@ -21,7 +21,8 @@ beside it (the function the kernel is held against on the card); any other
 device raises.  Where the TPU kernel uses a device of that machine, the
 port computes the function itself: P4 returns the exact minimum and the
 exact row (the TPU packs the row into the low 9 bits of the value, which
-truncates the value and mis-orders near-ties).
+truncates the value and mis-orders near-ties), with NaN ordered above every
+number as that key orders it.
 """
 
 from __future__ import annotations
@@ -175,18 +176,25 @@ p3_reshape.launches = 0
 
 
 def p4_min_plain(t):
-    """P4 in tensor ops: the exact column minimum and the lowest row that
-    holds it."""
+    """P4 in tensor ops: per column the lowest row of the exact minimum, a
+    NaN never winning against a number (an all-NaN column gives row 0), and
+    the value that row holds."""
     s, r = t.shape
-    m = t.min(dim=0).values
+    nan = torch.isnan(t)
+    m = torch.where(nan, float("inf"), t).min(dim=0).values
     rows = torch.arange(s, device=t.device)[:, None].expand(s, r)
     row = torch.where(t == m, rows, s).min(dim=0).values
-    return m.reshape(-1, LANES), row.to(torch.int32).reshape(-1, LANES)
+    row = torch.where(nan.all(dim=0), 0, row)
+    return (t.gather(0, row[None]).reshape(-1, LANES),
+            row.to(torch.int32).reshape(-1, LANES))
 
 
 def p4_min(t):
     """P4: t float32 [S, R] (R a multiple of 128) -> (column minimum
-    [R/128, 128], its row int32 [R/128, 128]); the lowest row wins a tie."""
+    [R/128, 128], its row int32 [R/128, 128]); the lowest row wins a tie,
+    and a NaN never wins against a number: NaN is ordered above +inf, as
+    the reference's packed key orders it, and an all-NaN column gives
+    (its row 0's NaN, 0)."""
     device = t.device if isinstance(t, torch.Tensor) else None
     _check("t", t, torch.float32, (None, None), device)
     s, r = t.shape

@@ -129,7 +129,10 @@ exit — if any phase fails:
      computes the same function, where there is one (library_ms); and the
      device-side durations of the kernel and the library call
      (torch.profiler's CUDA trace, 50 calls), which the host's launch path
-     does not inflate, with the bound's share of the kernel's;
+     does not inflate, with the bound's share of the kernel's.  P4 also on
+     a third input, NaN at rows 0 and 9 of one column and in every row of
+     another: bit for bit against the plain version, a NaN never winning
+     against a number and the all-NaN column giving row 0;
  24. `tools.fp32_probe.main([])`: V1, V2 (float32 and bfloat16) and V3 (prod,
      nosqrt, nobranch, smem, k1) at the reference's shape (256 spheres, 1,024
      rays, 4,000 rounds) and at the card-filling shape (270,336 rays, 400
@@ -137,7 +140,8 @@ exit — if any phase fails:
      raster order, uniform within a warp, and shuffled, smem in raster
      order), launches counted; twice the rounds must take twice the time; no
      rate may exceed the card's peak; V3 prod's (t, index) must have k1's
-     SHA-256 (and smem's) on every input the tool ran both.  Then
+     SHA-256 (and smem's) on every input the tool ran both; V1's time, the
+     bound's share of it and its SHA-256 printed per shape.  Then
      every kernel and variant against its plain version at the reference's
      shape with 3 rounds: V1's and V3's t to rtol 1e-5 (atol 2e-6: a root is
      a difference of O(1) terms), V3's index equal on all but near-ties (at
@@ -1499,11 +1503,21 @@ def tool_phases(dev, smi):
             check(a.shape == b.shape and a.dtype == b.dtype,
                   f"{label}: output {a.shape} {a.dtype} vs the plain "
                   f"version's {b.shape} {b.dtype}")
+            nan = torch.isnan(b) if b.is_floating_point() else None
+            if nan is not None:
+                check(torch.equal(torch.isnan(a), nan),
+                      f"{label}: NaN elsewhere than the plain version")
             diff = (a.double() - b.double()).abs()
+            tol = atol + rtol * b.double().abs()
+            if nan is not None:
+                diff[nan] = tol[nan] = 0.0
             err = max(err, float(diff.max()))
-            check(bool((diff <= atol + rtol * b.double().abs()).all()),
+            check(bool((diff <= tol).all()),
                   f"{label}: off the plain version by {float(diff.max())} "
                   f"(rtol {rtol}, atol {atol})")
+            if rtol == atol == 0.0 and a.dtype == torch.float32:
+                check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                      f"{label}: not the plain version's bits")
         if callable(flops):
             flops = flops(got)
         dev_ms, names = device_ms(lambda: wrapper(*operands), 50)
@@ -1555,13 +1569,26 @@ def tool_phases(dev, smi):
     (t4,) = ref["p4_minpack"]
     tie_t = t4.clone()
     tie_t[400, 5] = tie_t[17, 5] = 0.5
-    for label, t in (("the reference's t", t4), ("a tie in column 5", tie_t)):
-        m, row = p_check(
+    # NaN at rows 0 and 9 of column 3 (a NaN never wins against a number)
+    # and in every row of column 7 (an all-NaN column gives row 0).
+    nan_t = t4.clone()
+    nan_t[[0, 9], 3] = float("nan")
+    nan_t[:, 7] = float("nan")
+    p4_out = {}
+    for label, t in (("the reference's t", t4), ("a tie in column 5", tie_t),
+                     ("NaN in columns 3 and 7", nan_t)):
+        p4_out[label] = p_check(
             "p4", f"P4 [512,1024] {label}", pp.p4_min, pp.p4_min_plain, (t,),
             512 * 1024, 512 * 1024 * 4 + 1024 * 8,
             lib=(lambda t=t: torch.min(t, dim=0)) if t is t4 else None)
+    m, row = p4_out["a tie in column 5"]
     check(float(m[0, 5]) == 0.5 and int(row[0, 5]) == 17,
           "P4: the lowest row did not win the tie")
+    m, row = p4_out["NaN in columns 3 and 7"]
+    check(int(row[0, 3]) not in (0, 9) and not bool(torch.isnan(m[0, 3]))
+          and int(row[0, 7]) == 0 and bool(torch.isnan(m[0, 7])),
+          f"P4: a NaN won against a number, or an all-NaN column gave "
+          f"({float(m[0, 7])}, {int(row[0, 7])})")
     packed, m5, attr = ref["p5_onehot"]
     tie_p = packed.clone()
     tie_p[3, 7] = tie_p[300, 7] = -1
@@ -1626,6 +1653,16 @@ def tool_phases(dev, smi):
         return bound(s * n * iters * vp.OPS[kind],
                      (s * 8 + 8 * n) * size + n * (8 if kind == "v3" else 4),
                      fp32_tool.PEAK[dtype])
+
+    # V1 per shape and round count: its time, the bound's share of it, and
+    # its output's SHA-256 (the same bits as the kernel it replaced).
+    for row in rows:
+        if row["name"] == "v1 sweep":
+            b = v_bound("v1", row["spheres"], row["rays"], row["iters"])
+            log(f"[fp32 probe] V1 ({row['spheres']},{row['rays']}) x "
+                f"{row['iters']} rounds: {row['ms']:.3f} ms, bound "
+                f"{b['bound_ms']:.3f} ms ({b['bound_ms'] / row['ms']:.2%} "
+                f"of the kernel's time), sha256 {row['sha256']} on {smi}")
 
     def v_check(key, label, fn, plain_fn, rtol, atol=0.0, dtype="float32"):
         """A rate probe against its plain version at the reference's shape,

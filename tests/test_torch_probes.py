@@ -174,6 +174,44 @@ def test_p5_ties_and_ragged_shapes(shape, tie_rows):
     np.testing.assert_array_equal(got[:, r // 2], attr[:, a] + attr[:, b])
 
 
+def _packed_key_min(t):
+    """The reference's P4 in numpy (`tools/proto_mxu.py::p4_min_packed`):
+    the row packed into the low 9 bits of t's bits, one int32 minimum per
+    column -> (the key's value, its row)."""
+    rows = np.arange(t.shape[0], dtype=np.int32)[:, None]
+    packed = (t.view(np.int32) & ~np.int32(511)) | rows
+    m = packed.min(axis=0)
+    return (m & ~np.int32(511)).view(np.float32), m & 511
+
+
+@pytest.mark.parametrize("nan_rows", [(0, 9), (5,), tuple(range(64))],
+                         ids=["rows_0_and_9", "one_row", "all_rows"])
+def test_p4_nan_never_wins(nan_rows):
+    """P4's plain version orders NaN as the reference's packed key does:
+    above every positive number, so a NaN never wins against a number and
+    an all-NaN column gives row 0.  The data's values differ above the low 9
+    bits, so the key's truncation decides nothing here: its row is the
+    argmin and its value the minimum's, bits 9 and up."""
+    rs = np.random.RandomState(4)
+    t = (1.0 + rs.permutation(64 * 256).reshape(64, 256) / 512.0).astype(
+        np.float32)
+    t[list(nan_rows), 3] = np.nan
+    t[list(nan_rows), 200] = np.nan
+    want_t, want_row = _packed_key_min(t)
+    m, row = pp.p4_min(torch.from_numpy(t))
+    m, row = m.numpy().reshape(-1), row.numpy().reshape(-1)
+    np.testing.assert_array_equal(row, want_row)
+    # The port's value is the row's own, untruncated.
+    np.testing.assert_array_equal(m.view(np.int32),
+                                  t[row, np.arange(256)].view(np.int32))
+    np.testing.assert_array_equal(m.view(np.int32) & ~511,
+                                  want_t.view(np.int32))
+    if len(nan_rows) == 64:
+        assert np.isnan(m[3]) and row[3] == 0
+    else:
+        assert not np.isnan(m[3]) and row[3] not in nan_rows
+
+
 # --- V1-V3: the tool's kernel factories at (256, 1024), 3 rounds -------------
 
 
@@ -269,6 +307,49 @@ def _v3_check(g, r, variant, want, t, idx):
 def test_rate_probe_matches_reference(monkeypatch, vpu, case):
     monkeypatch.setattr(vpu, "ITERS", 3)
     case(vpu)
+
+
+def _v1_edges(n_rays):
+    """(g [64, 8], r [8, n_rays]) with small dyadic values, so that every
+    operation before the root is exact and no contraction can change a
+    bit; every ray along +z, the table behind the rays but for sphere 0 or
+    1.  Rays 4k: tangent to sphere 0 (disc == 0, t = 2 taken: 3.0 out);
+    4k + 1: beside it (disc < 0: 4.0 out); 4k + 2: at the centre of sphere
+    1, whose r^2 = 2^-130 makes disc a positive denormal (both roots under
+    t_min: 4.0 out); 4k + 3: through sphere 0 (disc = 0.75)."""
+    rs = np.random.RandomState(29)
+    g = np.zeros((64, 8), np.float32)
+    g[:, :2] = rs.randint(-16, 17, (64, 2)) / 8.0
+    g[:, 2] = -20.0 - rs.randint(0, 17, 64) / 8.0
+    g[:, 3] = rs.randint(1, 65, 64) / 64.0
+    g[0, :4] = (0.0, 0.0, 2.0, 1.0)
+    g[1, :4] = (5.0, 5.0, 0.5, 2.0 ** -130)
+    r = np.zeros((8, n_rays), np.float32)
+    r[5] = 1.0
+    for k, origin in enumerate(((1.0, 0.0, 0.0), (3.0, 0.0, 0.0),
+                                (5.0, 5.0, 0.5), (0.5, 0.0, 0.0))):
+        r[:3, k::4] = np.asarray(origin, np.float32)[:, None]
+    return g, r
+
+
+def test_v1_tangent_negative_and_denormal_disc(monkeypatch, vpu):
+    """V1's plain version against the reference's `sweep_kernel` (interpret
+    mode) where the root's rule decides: a tangent ray takes t = -hb
+    (sqrt(0) = 0), a negative disc and a positive denormal disc give the
+    miss value 3.0.  The CUDA kernel is held to the same plain version bit
+    for bit on these inputs in `test_torch_cuda.py`."""
+    g, r = _v1_edges(256)
+    monkeypatch.setattr(vpu, "ITERS", 3)
+    monkeypatch.setattr(vpu, "R", 256)
+    want = _reference(vpu, vpu.sweep_kernel(jnp.float32), g, r)
+    got = vp.v1_sweep(torch.from_numpy(g), torch.from_numpy(r), 3).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got[0, 0::4], 3.0)
+    np.testing.assert_array_equal(got[0, 1::4], 4.0)
+    np.testing.assert_array_equal(got[0, 2::4], 4.0)
+    np.testing.assert_array_equal(
+        got[0, 3::4], np.float32(1.0) + (np.float32(2.0)
+                                         - np.sqrt(np.float32(0.75))))
 
 
 def test_v3_variants_agree_where_they_must():
