@@ -14,101 +14,279 @@
 //   P4  replaces p4_min_packed       (tools/proto_mxu.py:90)
 //   P5  replaces p5_onehot_gather    (tools/proto_mxu.py:116)
 //
-// What bounds them on an H100: bytes, all five (the largest, P2, writes 4 MB;
-// P4 and P5 read 2 MB).  At these shapes (1,024 lanes or columns) none comes
-// near that bound: each is a few microseconds of latency, and a launch costs
-// about as much.  P1-P3 take a thread per lane or element; P4 and P5 spread
-// their rows over R / 8 blocks, 128 at the tool's shape, 32 rows a thread
-// (below).  They are probes of constructs, not of rates; the rate probes are
-// in fp32_probe.cu.
+// What bounds them on an H100: P2 by its bytes (it writes 4 MB at the tool's
+// shape), P4 and P5 by the latency of their 2 MB of loads, P1 and P3 by the
+// cost of a launch itself (P1's 50 rounds of four operations a lane are
+// nanoseconds of arithmetic).  P1 runs its 1,024 lanes as warps that each
+// vote alone, ahead of their carries, and meet once across a cluster of 8
+// blocks to agree on the round count; P2 gives a thread four consecutive
+// columns of 4 rows and stores each row 128 bits at a time as soon as it is
+// summed; P3 takes a thread an element; P4 and P5 spread their rows over
+// R / 8 blocks, 128 at the tool's shape, 32 rows a thread (below).  They are
+// probes of constructs, not of rates; the rate probes are in fp32_probe.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
 // --use_fast_math, --fmad at its default (a*b+c contracts to fma).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 // ---- P1 ---------------------------------------------------------------------
-// One block, one thread per lane.  The loop runs while ANY lane is alive:
-// __syncthreads_or is both the block-wide vote and the barrier, so every
-// thread reaches it in every round, dead or not.  As in the TPU kernel a dead
-// lane's carries a and b go on updating until the last lane has died; only
-// `alive` is sticky.  K1 (k1_render.cu) replaced this block-wide loop by a
-// per-thread `break`; P1 measures the alternative it did not take.
+// The loop runs while ANY lane is alive; as in the TPU kernel a dead lane's
+// carries a and b go on updating until the last lane has died, and only
+// `alive` is sticky.  So the loop's round count R is the largest of the
+// lanes' own counts, and a lane's carries after R rounds do not depend on
+// when the others died.  The kernel therefore needs no barrier a round:
+//   1. each warp loops on its own vote (__any_sync) until its lanes are dead
+//      and counts its rounds r_w;
+//   2. the warps meet once: each sends r_w into every block's shared memory
+//      (st.async, counted by an mbarrier), and every warp reads R = max r_w;
+//   3. each warp runs its R - r_w remaining rounds with no vote, and stores.
+// `a` only grows (a + 1 >= a, and a NaN stays NaN), so a lane is alive after
+// round r exactly when a_r < 50: `alive` needs no register of its own.  That
+// lets a warp vote ahead: it steps `a` alone kP1Ahead rounds, votes once on
+// the last, and if a lane is still alive then, runs those rounds' carries
+// with no vote; otherwise it takes them a round and a vote at a time and
+// stops at the round after which no lane is alive.  A lane does the same
+// operations on the same values as the TPU kernel's loop, with the fma
+// written out (p1_carry), so the output keeps the bits of a block-wide loop
+// whatever nvcc would contract.  What P1 measures on this card is a vote a
+// warp and one cluster-wide count: the TPU's construct without the barrier
+// a round.  K1 (k1_render.cu) runs a per-lane loop with no vote at all.
+//
+// The 1,024 lanes go to a thread block cluster of kP1Blocks (8) blocks of
+// kP1Threads (128), a lane a thread, on 8 SMs.  Against one block of 1,024
+// (1, 2 or 4 lanes a thread), a vote every 1, 4 or 8 rounds, and a meeting
+// by cluster.sync() (whose release fence costs more than the rounds it
+// spreads), this form was the fastest on an H100 (PERF.md).
 constexpr int kP1Lanes = 1024;
+constexpr int kP1Blocks = 8;
+constexpr int kP1Threads = kP1Lanes / kP1Blocks;
+constexpr int kP1Warps = kP1Threads / 32;  // warps a block
+constexpr int kP1Ahead = 16;               // rounds a vote
+static_assert(kP1Warps * kP1Blocks == 32,
+              "a lane of one warp for each warp's count");
+// A warp waits for the cluster's counts at most this long and then traps.
+// The longest run that ends, a lane at -2^24 (2^24 + 50 rounds), stays far
+// inside it (test_cuda_p1_longest_run_ends).
+constexpr unsigned long long kP1WaitNs = 10'000'000'000ull;
 
-__global__ void __launch_bounds__(kP1Lanes)
+// A round's update of b from the round's a: b * 1.01 + a * 0.001, contracted
+// as nvcc contracts the TPU kernel's body in a loop of one lane a thread.
+__device__ __forceinline__ float p1_carry(float b, float a) {
+  return fmaf(b, 1.01f, a * 0.001f);
+}
+
+// The cluster's meeting by st.async: every warp writes its count into every
+// block's `warp_rounds`, and each block's mbarrier `got` completes when all
+// of them (4 bytes each) have landed.  Nothing is read from another block,
+// so no release fence or second cluster barrier is needed.
+__device__ __forceinline__ unsigned p1_smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void p1_send(const int* slot, int value,
+                                        const unsigned long long* got,
+                                        unsigned rank) {
+  unsigned remote_slot, remote_got;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote_slot) : "r"(p1_smem(slot)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote_got) : "r"(p1_smem(got)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];" ::"r"(remote_slot), "r"(value), "r"(remote_got)
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned long long p1_now() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+// Waits for phase 0 of the mbarrier.  The wait is bounded in time: a count
+// that never lands (or a lane whose a + 1 no longer grows, a < -2^24, whose
+// warp never ends) traps after kP1WaitNs, a launch error the caller sees.
+__device__ __forceinline__ void p1_wait(const unsigned long long* got) {
+  const unsigned long long start = p1_now();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(p1_smem(got)) : "memory");
+    if (done) return;
+    if (p1_now() - start > kP1WaitNs) __trap();
+  }
+}
+
+__global__ void __launch_bounds__(kP1Threads)
     p1_while_kernel(const float* __restrict__ x, float* __restrict__ out,
                     int* __restrict__ rounds_out) {
-  const int lane = threadIdx.x;
-  float a = x[lane];
-  float b = a * 2.0f;
-  int alive = 1;
-  int rounds = 0;
-  while (__syncthreads_or(alive)) {
-    a = a + 1.0f;
-    b = b * 1.01f + a * 0.001f;
-    alive = alive && (a < 50.0f);
-    ++rounds;
+  __shared__ int warp_rounds[kP1Warps * kP1Blocks];
+  __shared__ unsigned long long got;
+  // The mbarrier, ready before any block of the cluster may send to it: the
+  // cluster barrier's wait comes before the first send (below).
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(p1_smem(&got))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  out[lane] = b + static_cast<float>(rounds);
-  if (lane == 0) *rounds_out = rounds;
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.x * kP1Threads + threadIdx.x;
+  float a = x[i];
+  float b = a * 2.0f;
+  // 1. The warp's own loop: the first round always runs.
+  int rounds = 0;
+  for (;;) {
+    float ahead[kP1Ahead];  // a after each next round
+#pragma unroll
+    for (int u = 0; u < kP1Ahead; ++u) ahead[u] = (u ? ahead[u - 1] : a) + 1.0f;
+    if (__any_sync(~0u, ahead[kP1Ahead - 1] < 50.0f)) {
+#pragma unroll
+      for (int u = 0; u < kP1Ahead; ++u) b = p1_carry(b, ahead[u]);
+      a = ahead[kP1Ahead - 1];
+      rounds += kP1Ahead;
+      continue;
+    }
+    // The warp's last lane dies within these rounds: a vote a round.
+#pragma unroll
+    for (int u = 0; u < kP1Ahead; ++u) {
+      a = ahead[u];
+      b = p1_carry(b, a);
+      ++rounds;
+      if (!__any_sync(~0u, a < 50.0f)) break;
+    }
+    break;
+  }
+  // 2. The count of the cluster: the largest warp's.
+  const unsigned me = cg::this_cluster().block_rank();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (threadIdx.x == 0)
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+            p1_smem(&got)),
+        "r"(kP1Warps * kP1Blocks * 4)
+        : "memory");
+  if (lane < kP1Blocks)
+    p1_send(&warp_rounds[me * kP1Warps + warp], rounds, &got, lane);
+  p1_wait(&got);
+  const int total = __reduce_max_sync(~0u, warp_rounds[lane]);
+  // 3. The rounds this warp's lanes go on updating after they died.
+  for (int r = rounds; r < total; ++r) {
+    a = a + 1.0f;
+    b = p1_carry(b, a);
+  }
+  out[i] = b + static_cast<float>(total);
+  if (i == 0) *rounds_out = total;
 }
 
 // ---- P2 ---------------------------------------------------------------------
-// c[M, N] = a[M, K] @ b[K, N] in float32: a block computes a 64 x 64 tile of
-// c from shared-memory tiles of a and b, 16 of K at a time, each thread a 4 x
-// 4 patch with plain fmaf (wgmma has no float32 input type, only TF32).  A
-// thread's four columns are 16 apart, so a half-warp's stores cover 64
-// consecutive bytes.  With K = 16 the product writes 64 times the bytes it
-// reads: the stores bound it.
+// c[M, N] = a[M, K] @ b[K, N] in float32, each element fmaf over k ascending
+// from 0 (wgmma has no float32 input type, only TF32, which keeps ~3 decimal
+// digits).  With K = 16 the product writes 64 times the bytes it reads: the
+// bytes bound it (4.3 MB at the tool's shape, 1.29 us at 3.35 TB/s), and its
+// 33.6 MFLOP are 0.5 us at the card's float32 rate.  The design:
+//   * a block of 256 threads computes a 64 x 64 tile of c, a block a tile
+//     (256 blocks at the tool's shape, one wave at 3 blocks an SM); thread
+//     (tx, ty) holds four consecutive columns 4 tx .. 4 tx + 3 of the rows
+//     ty + 16 i, i < kP2Rows (4), and writes each row's four as one 128-bit
+//     streaming store (__stcs, evict-first: c is never read back here), a
+//     half-warp a 256-byte row piece an instruction;
+//   * per K step of 16 the block's A panel (64 rows x 16, one contiguous
+//     4 KB piece when K = 16) and B panel (16 rows x 256 bytes) come into
+//     shared memory with one 128-bit load each a thread, and the next
+//     step's panels are loaded while this step's products run;
+//   * a thread reads its four columns at every k of the step once (16
+//     128-bit loads), then takes its rows one at a time: four 128-bit loads
+//     of the row of A (every thread of a phase reads one address) and 64
+//     fmaf; at the last step each row is stored as soon as it is summed, so
+//     that the stores of one row overlap the products of the next.
+// Against 8 rows a thread, all rows stored at the end, plain stores and a
+// persistent grid walking the tiles, this form was the fastest at the
+// tool's shape on an H100 (PERF.md).  What holds it above its bound is the
+// card's own store stream: a plain 4 MB fill of zeros takes most of P2's
+// time, and the loads and products before the first store are the rest.
+// a, b and c must be 16-byte aligned (the launcher refuses them otherwise);
+// M and N are multiples of 64, K of 16.
 constexpr int kP2Tile = 64;
 constexpr int kP2K = 16;
+constexpr int kP2Rows = 4;                              // rows a thread
+constexpr int kP2ColThreads = kP2Tile / 4;              // threads a row
+constexpr int kP2RowThreads = kP2Tile / kP2Rows;        // rows apart
+constexpr int kP2Threads = kP2ColThreads * kP2RowThreads;
+static_assert(kP2Tile * kP2K / 4 == kP2Threads,
+              "one float4 of each panel a thread");
 
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ float p2_lane(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(kP2Threads)
     p2_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   float* __restrict__ c, int m, int n, int k) {
-  __shared__ float as[kP2K][kP2Tile + 1];  // as[kk][row], padded
-  __shared__ float bs[kP2K][kP2Tile];      // bs[kk][col]
+  __shared__ __align__(16) float as[kP2Tile][kP2K];  // as[row][kk]
+  __shared__ __align__(16) float bs[kP2K][kP2Tile];  // bs[kk][col]
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * kP2Tile, col0 = blockIdx.x * kP2Tile;
-  float acc[4][4] = {};
+  const int tx = tid % kP2ColThreads, ty = tid / kP2ColThreads;
+  const int tiles_n = n / kP2Tile;
+  const int row0 = blockIdx.x / tiles_n * kP2Tile;
+  const int col0 = blockIdx.x % tiles_n * kP2Tile;
+  // This thread's float4 of the A and B panels at k0: of A, row tid / 4,
+  // k0 + 4 (tid % 4); of B, row k0 + tid / 16, columns 4 (tid % 16) on.
+  float4 av, bv;
+  const auto load = [&](int k0) {
+    av = __ldg(reinterpret_cast<const float4*>(
+        a + static_cast<size_t>(row0 + tid / 4) * k + k0) + tid % 4);
+    bv = __ldg(reinterpret_cast<const float4*>(
+        b + static_cast<size_t>(k0 + tid / 16) * n + col0) + tid % 16);
+  };
+  load(0);
+  float4 acc[kP2Rows];
+#pragma unroll
+  for (int i = 0; i < kP2Rows; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k0 = 0; k0 < k; k0 += kP2K) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = tid + i * 256;
-      as[e % kP2K][e / kP2K] =
-          a[static_cast<size_t>(row0 + e / kP2K) * k + k0 + e % kP2K];
-      bs[e / kP2Tile][e % kP2Tile] =
-          b[static_cast<size_t>(k0 + e / kP2Tile) * n + col0 + e % kP2Tile];
-    }
+    __syncthreads();  // every thread is done with the last panels
+    reinterpret_cast<float4*>(as[tid / 4])[tid % 4] = av;
+    reinterpret_cast<float4*>(bs[tid / 16])[tid % 16] = bv;
     __syncthreads();
+    const bool last = k0 + kP2K >= k;
+    if (!last) load(k0 + kP2K);  // in flight during this step's products
+    float4 br[kP2K];
 #pragma unroll
-    for (int kk = 0; kk < kP2K; ++kk) {
-      float av[4], bv[4];
+    for (int kk = 0; kk < kP2K; ++kk)
+      br[kk] = reinterpret_cast<const float4*>(bs[kk])[tx];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = as[kk][ty * 4 + i];
-        bv[i] = bs[kk][tx + 16 * i];
+    for (int i = 0; i < kP2Rows; ++i) {
+      const int row = ty + kP2RowThreads * i;
+#pragma unroll
+      for (int kk = 0; kk < kP2K; kk += 4) {
+        const float4 ar = reinterpret_cast<const float4*>(as[row])[kk / 4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // k = k0 + kk + q, ascending
+          const float ai = p2_lane(ar, q);
+          acc[i].x = fmaf(ai, br[kk + q].x, acc[i].x);
+          acc[i].y = fmaf(ai, br[kk + q].y, acc[i].y);
+          acc[i].z = fmaf(ai, br[kk + q].z, acc[i].z);
+          acc[i].w = fmaf(ai, br[kk + q].w, acc[i].w);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      if (last)
+        __stcs(reinterpret_cast<float4*>(
+                   c + static_cast<size_t>(row0 + row) * n + col0) + tx,
+               acc[i]);
     }
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      c[static_cast<size_t>(row0 + ty * 4 + i) * n + col0 + tx + 16 * j] =
-          acc[i][j];
 }
 
 // ---- P3 ---------------------------------------------------------------------
@@ -312,23 +490,39 @@ inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 // Every launcher takes device pointers and a stream, returns the launch's
 // cudaError_t (0 on success) and does not synchronize.
 
-// x [1024] float -> out [1024] float, rounds [1] int32.
+// x [1024] float -> out [1024] float, rounds [1] int32, as one thread block
+// cluster; a refused launch returns its error.
 extern "C" int brt_p1_while(const void* x, void* out, void* rounds,
                             void* stream) {
-  p1_while_kernel<<<1, kP1Lanes, 0, as_stream(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<int*>(rounds));
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kP1Blocks);
+  config.blockDim = dim3(kP1Threads);
+  config.stream = as_stream(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = kP1Blocks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, p1_while_kernel, static_cast<const float*>(x),
+      static_cast<float*>(out), static_cast<int*>(rounds));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// a [m, k], b [k, n] -> c [m, n]; m and n multiples of 64, k of 16.
+// a [m, k], b [k, n] -> c [m, n]; m and n multiples of 64, k of 16, every
+// pointer 16-byte aligned.
 extern "C" int brt_p2_dot(const void* a, const void* b, void* c, int m, int n,
                           int k, void* stream) {
-  if (m % kP2Tile || n % kP2Tile || k % kP2K || m <= 0 || n <= 0 || k <= 0)
+  if (m % kP2Tile || n % kP2Tile || k % kP2K || m <= 0 || n <= 0 || k <= 0 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(c)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  p2_dot_kernel<<<dim3(n / kP2Tile, m / kP2Tile), 256, 0, as_stream(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), m, n, k);
+  p2_dot_kernel<<<(m / kP2Tile) * (n / kP2Tile), kP2Threads, 0,
+                  as_stream(stream)>>>(static_cast<const float*>(a),
+                                       static_cast<const float*>(b),
+                                       static_cast<float*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,11 +18,14 @@ TPU's compiler whether a render kernel may be built on a construct:
 Each wrapper checks its operands and, on CUDA tensors, launches its kernel
 and adds one to its `launches`; on CPU tensors it runs the `*_plain` version
 beside it (the function the kernel is held against on the card); any other
-device raises.  Where the TPU kernel uses a device of that machine, the
-port computes the function itself: P4 returns the exact minimum and the
-exact row (the TPU packs the row into the low 9 bits of the value, which
-truncates the value and mis-orders near-ties), with NaN ordered above every
-number as that key orders it.
+device raises.  On the card P1 runs as one thread block cluster of 8 blocks
+whose warps each vote on their own lanes and meet once for the round count,
+and P2 as a block of 256 threads a 64 x 64 tile of c, stored 128 bits at a
+time (`csrc/probes.cu` says why).  Where the TPU kernel uses a device of
+that machine, the port computes the function itself: P4 returns the exact
+minimum and the exact row (the TPU packs the row into the low 9 bits of the
+value, which truncates the value and mis-orders near-ties), with NaN
+ordered above every number as that key orders it.
 """
 
 from __future__ import annotations
@@ -101,7 +104,10 @@ def p1_while(x):
     """P1: from a = x, b = 2x, every round does a += 1; b = b * 1.01 + a *
     0.001; alive &= a < 50, while ANY lane is alive; a dead lane's carries
     go on updating until the last lane dies.  x float32 [8, 128] ->
-    (b + rounds [8, 128], rounds int32 [1])."""
+    (b + rounds [8, 128], rounds int32 [1]).  The kernel: a cluster of 8
+    blocks of 128 threads, a lane a thread; each warp votes on its own
+    lanes, the warps agree on the largest count once, and a warp whose lanes
+    died early runs the remaining rounds alone."""
     device = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, torch.float32, P1_SHAPE, device)
     if device.type == "cpu":
@@ -126,7 +132,11 @@ def p2_dot_plain(a, b):
 
 def p2_dot(a, b):
     """P2: a [M, K] @ b [K, N] in float32 by the kernel's own tiles (M and
-    N multiples of 64, K of 16) -> [M, N]."""
+    N multiples of 64, K of 16) -> [M, N].  The kernel: a block of 256
+    threads a 64 x 64 tile of c, a thread four consecutive columns of 4 rows,
+    each element fmaf over k ascending, each row stored as one 128-bit store
+    when summed; a and b must be 16-byte aligned (a tensor of its own is;
+    the launch is refused otherwise)."""
     device = a.device if isinstance(a, torch.Tensor) else None
     _check("a", a, torch.float32, (None, None), device)
     m, k = a.shape

@@ -120,12 +120,17 @@ exit — if any phase fails:
      spills;
  23. `tools.proto_probes.main([])` (P1-P5 on the reference tool's inputs,
      two launches each, counted); then each of P1-P5 against its plain
-     version on the card on those inputs and, for P1, P4 and P5, on a second
-     seeded input (P1: lanes dying in different rounds; P4, P5: a forced tie
-     in one column).  Tolerances: P1 rtol 1e-5 (the kernel contracts one
-     multiply-add); P2 1e-5 of the largest entry (the order of the sum over
-     K = 16), with torch.backends.cuda.matmul.allow_tf32 False; P3, P4
-     (value and row) and P5 exact.  Each beside the one PyTorch call that
+     version on the card on those inputs and, for P4 and P5, on a second
+     input with a forced tie in one column; P1 also on seeded lanes dying in
+     different rounds, on warp 0 dying in round 1 beside lanes that take 50,
+     on one surviving lane, on lanes all dead after one round and on a NaN
+     lane (p1_inputs(), each with its exact round count); P2 also at
+     [1024,48] @ [48,1024] (three K steps).  The SHA-256 of P1's and P2's
+     outputs on each input is printed, so that two trees run in one call
+     can be held to the same bits.  Tolerances: P1 rtol 1e-5 (the kernel
+     contracts one multiply-add); P2 1e-5 of the largest entry (the order of
+     the sum over K), with torch.backends.cuda.matmul.allow_tf32 False; P3,
+     P4 (value and row) and P5 exact.  Each beside the one PyTorch call that
      computes the same function, where there is one (library_ms); and the
      device-side durations of the kernel and the library call
      (torch.profiler's CUDA trace, 50 calls), which the host's launch path
@@ -315,6 +320,55 @@ def kernel_entry(name, source, replaces, launches, ks, library_ms=None):
             "ms": ks[0]["ms"], "plain_ms": ks[0]["plain_ms"],
             "bound_ms": ks[0]["bound_ms"], "bound_by": ks[0]["bound_by"],
             "library_ms": library_ms, "checks": ks}
+
+
+def p1_inputs():
+    """{label: (x float32 [8, 128], the rounds P1 must run)}: the
+    reference's x = 0 and inputs whose lanes die in different rounds, in
+    one round, or at once (a NaN lane: `a < 50` is false)."""
+    import numpy as np
+
+    seeded = np.random.RandomState(7).uniform(0.0, 40.0, (8, 128)).astype(
+        np.float32)
+    apart = np.zeros((8, 128), np.float32)
+    apart.reshape(-1)[:32] = 49.5  # warp 0 dies in round 1, the rest in 50
+    survivor = np.full((8, 128), 49.5, np.float32)
+    survivor.reshape(-1)[1023] = 0.0
+    high = np.random.RandomState(8).uniform(49.0, 60.0, (8, 128)).astype(
+        np.float32)
+    nan = seeded.copy()
+    nan[3, 77] = np.nan
+    after = int(np.ceil(50.0 - float(seeded.min())))
+    return {"x = 0 (the reference's)": (np.zeros((8, 128), np.float32), 50),
+            "seeded x in [0, 40)": (seeded, after),
+            "warp 0 at 49.5, the rest at 0": (apart, 50),
+            "one survivor, lane 1023 at 0": (survivor, 50),
+            "every lane at x >= 49": (high, 1),
+            "a NaN lane among seeded x": (nan, after)}
+
+
+def p2_inputs():
+    """{label: (a [M, K], b [K, N]) float32}: the reference's product and a
+    seeded one with K = 48 (three K steps)."""
+    import numpy as np
+
+    rs = np.random.RandomState(1024 + 48 + 1024)
+    return {"[1024,16] @ [16,1024] (the reference's)": (
+                np.random.RandomState(0).randn(1024, 16).astype(np.float32),
+                np.random.RandomState(1).randn(16, 1024).astype(np.float32)),
+            "[1024,48] @ [48,1024] seeded": (
+                rs.randn(1024, 48).astype(np.float32),
+                rs.randn(48, 1024).astype(np.float32))}
+
+
+def sha256(*tensors):
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def gradient_phases(dev, smi):
@@ -1544,25 +1598,39 @@ def tool_phases(dev, smi):
         checks[key].append(entry)
         return got
 
-    (x1,) = ref["p1_while"]
-    seeded = torch.from_numpy(np.random.RandomState(7).uniform(
-        0.0, 40.0, (8, 128)).astype(np.float32)).to(dev)
-    for label, x in (("x = 0 (the reference's)", x1),
-                     ("seeded x in [0, 40)", seeded)):
-        # Per lane and round: an add, a multiply, a multiply-add, a compare.
+    # P1 on the reference's x and on lanes that die rounds apart, in one
+    # round or at once; P2 on the reference's product and with K = 48.  The
+    # SHA-256 of each output is printed, so that two trees run in one call
+    # can be held to the same bits.
+    p1_digests, p2_digests = {}, {}
+    for label, (x, want_rounds) in p1_inputs().items():
+        x = torch.from_numpy(x).to(dev)
+        # Per lane and round: an add, a multiply, a multiply-add, a compare
+        # (the function's own work: the vote and the count are the
+        # kernel's).
         out, rounds = p_check(
             "p1", f"P1 [8,128] {label}", pp.p1_while, pp.p1_while_plain,
             (x,), lambda got: int(got[1]) * 1024 * 5, 2 * 1024 * 4 + 4,
             rtol=1e-5)
-        log(f"[probes] P1 {label}: {int(rounds)} rounds")
-    check(int(rounds) == int(np.ceil(50.0 - float(seeded.min()))),
-          "P1 did not run until its last lane died")
-    a, b = ref["p2_dot"]
-    scale = float((a @ b).abs().max())
-    p_check("p2", "P2 [1024,16] @ [16,1024]", pp.p2_dot, pp.p2_dot_plain,
-            (a, b), 2 * 1024 * 1024 * 16,
-            (1024 * 16 * 2 + 1024 * 1024) * 4, atol=1e-5 * scale,
-            lib=lambda: torch.matmul(a, b))
+        p1_digests[label] = sha256(out, rounds)
+        log(f"[probes] P1 {label}: {int(rounds)} rounds, sha256 "
+            f"{p1_digests[label]}")
+        check(int(rounds) == want_rounds,
+              f"P1 {label}: {int(rounds)} rounds, not {want_rounds}: the "
+              f"loop did not run until its last lane died")
+    check(p1_digests["x = 0 (the reference's)"]
+          != p1_digests["every lane at x >= 49"], "P1's digests are blind")
+    for label, ab in p2_inputs().items():
+        a, b = (torch.from_numpy(v).to(dev) for v in ab)
+        (m, k), n = a.shape, b.shape[1]
+        scale = float((a @ b).abs().max())
+        c = p_check("p2", f"P2 {label}", pp.p2_dot, pp.p2_dot_plain, (a, b),
+                    2 * m * n * k, (m * k + k * n + m * n) * 4,
+                    atol=1e-5 * scale,
+                    lib=(lambda a=a, b=b: torch.matmul(a, b))
+                    if k == 16 else None)[0]
+        p2_digests[label] = sha256(c)
+        log(f"[probes] P2 {label}: sha256 {p2_digests[label]}")
     (x3,) = ref["p3_reshape"]
     p_check("p3", "P3 [8,128]", pp.p3_reshape, pp.p3_reshape_plain, (x3,),
             1024, 2 * 1024 * 4, lib=lambda: x3.reshape(1, -1) * 2.0)
@@ -1801,6 +1869,7 @@ def tool_phases(dev, smi):
     log(f"[launches] over the tool path (phases 23-25): {launches}")
     return entries, launches, {
         "probe_build_s": build_s, "tool_leg_launches": legs,
+        "probe_sha256": {"p1": p1_digests, "p2": p2_digests},
         "v3_time_over_prod": v3_speedup,
         "fp32_probe_rows": rows, "grad_bench_steps": steps,
         "graft_entry_s": entry_s, "graft_entry_vs_k1": entry_vs,

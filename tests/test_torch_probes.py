@@ -111,20 +111,65 @@ def test_probe_matches_reference(interpret, proto, case):
     case(proto)
 
 
-def test_p1_lanes_die_in_different_rounds():
-    """A seeded x: the loop runs until the LAST lane dies, and every lane's
-    carries go on updating until then (the reference's loop body masks only
-    `alive`)."""
-    x = torch.from_numpy(np.random.RandomState(7).uniform(
-        0.0, 40.0, (8, 128)).astype(np.float32))
-    out, rounds = pp.p1_while(x)
+def _p1_x(case):
+    """P1's x [8, 128] for `case` and the rounds it must run: seeded lanes
+    in [0, 40); warp 0 (lanes 0-31) at 49.5, dying in round 1, and the rest
+    at 0, taking 50; one survivor, lane 1,023 at 0 and the rest at 49.5;
+    every lane at x >= 49, one round."""
+    if case == "seeded":
+        x = np.random.RandomState(7).uniform(0.0, 40.0, (8, 128))
+        return x.astype(np.float32), int(np.ceil(50.0 - x.astype(
+            np.float32).min()))
+    if case == "warp_0_apart":
+        x = np.zeros((8, 128), np.float32)
+        x.reshape(-1)[:32] = 49.5
+        return x, 50
+    if case == "one_survivor":
+        x = np.full((8, 128), 49.5, np.float32)
+        x.reshape(-1)[1023] = 0.0
+        return x, 50
+    x = np.random.RandomState(8).uniform(49.0, 60.0, (8, 128))
+    return x.astype(np.float32), 1
+
+
+@pytest.mark.parametrize("case", ["seeded", "warp_0_apart", "one_survivor",
+                                  "all_above_49"])
+def test_p1_lanes_die_in_different_rounds(case):
+    """The loop runs until the LAST lane dies, and every lane's carries go
+    on updating until then (the reference's loop body masks only `alive`):
+    the plain version against the loop in float64 on lanes that die in
+    different rounds, in round 1 beside lanes that take 50, or all at once.
+    `test_torch_cuda.py` holds the kernel to the plain version on the same
+    inputs."""
+    x, want_rounds = _p1_x(case)
+    out, rounds = pp.p1_while(torch.from_numpy(x))
     n = int(rounds)
-    assert n == int(np.ceil(50.0 - float(x.min()))) and 10 < n <= 50
-    a, b = x.double().numpy(), 2.0 * x.double().numpy()
+    assert n == want_rounds and 1 <= n <= 50
+    a, b = x.astype(np.float64), 2.0 * x.astype(np.float64)
     for _ in range(n):
         a = a + 1.0
         b = b * 1.01 + a * 0.001
     np.testing.assert_allclose(out.numpy(), b + n, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 16, 64), (192, 32, 320),
+                                   (1024, 48, 1024), (64, 16, 4096)],
+                         ids=["one_tile", "k32_n320", "k48", "n4096"])
+def test_p2_plain_matches_float64_product(shape):
+    """P2's plain version against numpy's float64 product, relative to the
+    largest entry, at the shapes the kernel's tiles cut differently: one
+    tile, two K steps with N a multiple of 64 and not of 128, three K
+    steps, one row of tiles.  `test_torch_cuda.py` holds the kernel to the
+    plain version on the same inputs."""
+    m, k, n = shape
+    rs = np.random.RandomState(m + k + n)
+    a = rs.randn(m, k).astype(np.float32)
+    b = rs.randn(k, n).astype(np.float32)
+    got = pp.p2_dot(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    # Float32 sums over K in another order than numpy's float64.
+    assert got.shape == (m, n)
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-6
 
 
 def test_p4_p5_ties():
