@@ -17,13 +17,14 @@
 // What bounds them on an H100: P2 by its bytes (it writes 4 MB at the tool's
 // shape), P4 and P5 by the latency of their 2 MB of loads, P1 and P3 by the
 // cost of a launch itself (P1's 50 rounds of four operations a lane are
-// nanoseconds of arithmetic).  P1 runs its 1,024 lanes as warps that each
-// vote alone, ahead of their carries, and meet once across a cluster of 8
-// blocks to agree on the round count; P2 gives a thread four consecutive
-// columns of 4 rows and stores each row 128 bits at a time as soon as it is
-// summed; P3 takes a thread an element; P4 and P5 spread their rows over
-// R / 8 blocks, 128 at the tool's shape, 32 rows a thread (below).  They are
-// probes of constructs, not of rates; the rate probes are in fp32_probe.cu.
+// nanoseconds of arithmetic; P3 at a card-filling shape by its bytes).  P1
+// runs its 1,024 lanes as warps that each vote alone, ahead of their
+// carries, and meet once across a cluster of 8 blocks to agree on the round
+// count; P2 gives a thread four consecutive columns of 4 rows and stores
+// each row 128 bits at a time as soon as it is summed; P3 takes a float4 a
+// thread; P4 and P5 spread their rows over R / 8 blocks, 128 at the tool's
+// shape, 32 rows a thread (below).  They are probes of constructs, not of
+// rates; the rate probes are in fp32_probe.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
 // --use_fast_math, --fmad at its default (a*b+c contracts to fma).
@@ -73,9 +74,11 @@ constexpr int kP1Warps = kP1Threads / 32;  // warps a block
 constexpr int kP1Ahead = 16;               // rounds a vote
 static_assert(kP1Warps * kP1Blocks == 32,
               "a lane of one warp for each warp's count");
-// A warp waits for the cluster's counts at most this long and then traps.
-// The longest run that ends, a lane at -2^24 (2^24 + 50 rounds), stays far
-// inside it (test_cuda_p1_longest_run_ends).
+// A warp waits for the cluster's counts at most this long (10 s) and then
+// traps.  The longest run that ends, a lane at -2^24 (2^24 + 50 rounds),
+// stays far inside it (test_cuda_p1_longest_run_ends).  A trap is not an
+// ordinary launch error: it leaves the process's CUDA context unusable, and
+// every later CUDA call of the process fails too.
 constexpr unsigned long long kP1WaitNs = 10'000'000'000ull;
 
 // A round's update of b from the round's a: b * 1.01 + a * 0.001, contracted
@@ -114,7 +117,10 @@ __device__ __forceinline__ unsigned long long p1_now() {
 
 // Waits for phase 0 of the mbarrier.  The wait is bounded in time: a count
 // that never lands (or a lane whose a + 1 no longer grows, a < -2^24, whose
-// warp never ends) traps after kP1WaitNs, a launch error the caller sees.
+// warp never ends) traps after kP1WaitNs (10 s).  The trap ends the kernel
+// with an error that the next synchronizing call reports, and it leaves the
+// process's CUDA context unusable: every later CUDA call of the process
+// fails (the reference's loop would never end on such an input).
 __device__ __forceinline__ void p1_wait(const unsigned long long* got) {
   const unsigned long long start = p1_now();
   for (;;) {
@@ -291,15 +297,30 @@ __global__ void __launch_bounds__(kP2Threads)
 
 // ---- P3 ---------------------------------------------------------------------
 // [rows, 128] -> [1, rows * 128], times 2, and back.  A row-major reshape
-// moves nothing on a GPU, so the round trip is one elementwise pass that reads
-// through the [rows, 128] index map and writes through the flat one and back.
-__global__ void __launch_bounds__(128)
-    p3_reshape_kernel(const float* __restrict__ x, float* __restrict__ out,
-                      int rows) {
-  const int flat = blockIdx.x * blockDim.x + threadIdx.x;  // index in [1, n]
-  if (flat >= rows * 128) return;
-  const int r = flat / 128, c = flat % 128;  // index in [rows, 128]
-  out[r * 128 + c] = x[r * 128 + c] * 2.0f;
+// moves nothing on a GPU, so the round trip is one elementwise pass: x * 2,
+// exact in float32.
+//
+// What bounds it: at the tool's [8, 128] the launch itself (an empty kernel
+// takes ~0.83 us); at a card-filling [2^21, 128] its bytes, 2 GiB at 3.35
+// TB/s = 0.641 ms.  A float a thread keeps ~8 KB in flight an SM where HBM
+// needs ~15 KB, and reached half of that bound.  The design: a float4 a
+// thread (rows * 128 is a multiple of 4), loaded and stored with streaming
+// hints (each byte is touched once), kP3Threads a block, a block for each
+// kP3Threads float4s and no loop; the index is 64-bit, so every row count
+// that fits on the card runs.  Against 2 or 4 float4s a thread, 32 to 512
+// threads, a grid-stride loop over a one-shot or a persistent grid and plain
+// accesses, this form was the fastest on an H100 (PERF.md).  x and out must
+// be 16-byte aligned: the launcher refuses them otherwise.
+constexpr int kP3Threads = 256;
+constexpr int kP3Vecs = 128 / 4;  // float4s a row
+
+__global__ void __launch_bounds__(kP3Threads)
+    p3_reshape_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+                      size_t n4) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kP3Threads + threadIdx.x;
+  if (i >= n4) return;
+  const float4 v = __ldcs(x + i);
+  __stcs(out + i, make_float4(v.x * 2.0f, v.y * 2.0f, v.z * 2.0f, v.w * 2.0f));
 }
 
 // ---- P4 ---------------------------------------------------------------------
@@ -526,12 +547,20 @@ extern "C" int brt_p2_dot(const void* a, const void* b, void* c, int m, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x [rows, 128] -> out [rows, 128].
-extern "C" int brt_p3_reshape(const void* x, void* out, int rows,
+// x [rows, 128] -> out [rows, 128]; rows >= 1 and at most a grid's worth
+// (2^31 - 1 blocks: 2^34 rows, 8 TiB), x and out 16-byte aligned.
+extern "C" int brt_p3_reshape(const void* x, void* out, int64_t rows,
                               void* stream) {
-  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  p3_reshape_kernel<<<rows, 128, 0, as_stream(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), rows);
+  constexpr int64_t kMaxRows = static_cast<int64_t>(INT_MAX) * kP3Threads /
+                               kP3Vecs;
+  if (rows <= 0 || rows > kMaxRows ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n4 = static_cast<size_t>(rows) * kP3Vecs;
+  p3_reshape_kernel<<<static_cast<unsigned>((n4 + kP3Threads - 1) /
+                                            kP3Threads),
+                      kP3Threads, 0, as_stream(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(out), n4);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,15 +56,18 @@ MAX_SPHERES = 3072  # "prod" and "smem" keep 16 bytes a sphere in 48 KB
 OPS = {"v1": 20, "v2": 35, "v3": 16}
 
 
+_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+# Each launcher's argument types, the stream last (csrc/fp32_probe.cu).
+SIGNATURES = {
+    "brt_v1_sweep": [_vp, _vp, _vp, _i32, _i32, _i32, _vp],
+    "brt_v2_fma": [_vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp],
+    "brt_v3_sweep": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp],
+    "brt_v1_root_check": [ctypes.c_uint, ctypes.c_uint, _vp, _vp, _vp, _vp]}
+
+
 @functools.lru_cache(maxsize=1)
 def _launchers():
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _bind("fp32_probe", {
-        "brt_v1_sweep": [vp, vp, vp, i32, i32, i32, vp],
-        "brt_v2_fma": [vp, vp, vp, i32, i32, i32, i32, vp],
-        "brt_v3_sweep": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
-        "brt_v1_root_check": [ctypes.c_uint, ctypes.c_uint, vp, vp, vp,
-                              vp]})
+    return _bind("fp32_probe", SIGNATURES)
 
 
 def _check_operands(g, r, iters, dtype=torch.float32, min_iters=0):

@@ -20,12 +20,13 @@ and adds one to its `launches`; on CPU tensors it runs the `*_plain` version
 beside it (the function the kernel is held against on the card); any other
 device raises.  On the card P1 runs as one thread block cluster of 8 blocks
 whose warps each vote on their own lanes and meet once for the round count,
-and P2 as a block of 256 threads a 64 x 64 tile of c, stored 128 bits at a
-time (`csrc/probes.cu` says why).  Where the TPU kernel uses a device of
-that machine, the port computes the function itself: P4 returns the exact
-minimum and the exact row (the TPU packs the row into the low 9 bits of the
-value, which truncates the value and mis-orders near-ties), with NaN
-ordered above every number as that key orders it.
+P2 as a block of 256 threads a 64 x 64 tile of c, stored 128 bits at a
+time, and P3 as a float4 a thread on a 64-bit index (`csrc/probes.cu` says
+why).  Where the TPU kernel uses a device of that machine, the port
+computes the function itself: P4 returns the exact minimum and the exact
+row (the TPU packs the row into the low 9 bits of the value, which
+truncates the value and mis-orders near-ties), with NaN ordered above every
+number as that key orders it.
 """
 
 from __future__ import annotations
@@ -57,25 +58,46 @@ def _bind(library, sigs):
     return out
 
 
+_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+# Each launcher's argument types, the stream last (csrc/probes.cu).
+SIGNATURES = {
+    "brt_p1_while": [_vp, _vp, _vp, _vp],
+    "brt_p2_dot": [_vp, _vp, _vp, _i32, _i32, _i32, _vp],
+    "brt_p3_reshape": [_vp, _vp, ctypes.c_int64, _vp],
+    "brt_p4_min": [_vp, _vp, _vp, _i32, _i32, _vp],
+    "brt_p5_gather": [_vp, _vp, _vp, _vp, _i32, _i32, _vp]}
+
+
 @functools.lru_cache(maxsize=1)
 def _launchers():
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return _bind("probes", {
-        "brt_p1_while": [vp, vp, vp, vp],
-        "brt_p2_dot": [vp, vp, vp, i32, i32, i32, vp],
-        "brt_p3_reshape": [vp, vp, i32, vp],
-        "brt_p4_min": [vp, vp, vp, i32, i32, vp],
-        "brt_p5_gather": [vp, vp, vp, vp, i32, i32, vp]})
+    return _bind("probes", SIGNATURES)
+
+
+def _check_ints(name, argtypes, args):
+    """Raise ValueError where an integer of `args` does not fit the ctypes
+    integer type of its slot in `argtypes`: ctypes would wrap it silently
+    (2^31 + 5 in a c_int arrives as -2^31 + 5)."""
+    for k, (ctype, value) in enumerate(zip(argtypes, args)):
+        code = getattr(ctype, "_type_", "")
+        if not code or code not in "bBhHiIlLqQ":
+            continue
+        bits = 8 * ctypes.sizeof(ctype)
+        lo, hi = ((-(1 << bits - 1), (1 << bits - 1) - 1) if code.islower()
+                  else (0, (1 << bits) - 1))
+        if not lo <= value <= hi:
+            raise ValueError(f"{name}: argument {k} = {value} does not fit "
+                             f"its {ctype.__name__} ([{lo}, {hi}])")
 
 
 def _launch(wrapper, launchers, name, device, *args):
     """Launch `launchers()[name]` on `device`'s current stream and count it
-    on `wrapper`; raises where the device is not CUDA or the launch is
-    refused."""
+    on `wrapper`; raises where the device is not CUDA, an integer argument
+    does not fit its C type, or the launch is refused."""
     if device.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on CUDA (or its plain "
                          f"version on CPU), not {device}")
     fn = launchers()[name]
+    _check_ints(name, fn.argtypes, args)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -107,7 +129,13 @@ def p1_while(x):
     (b + rounds [8, 128], rounds int32 [1]).  The kernel: a cluster of 8
     blocks of 128 threads, a lane a thread; each warp votes on its own
     lanes, the warps agree on the largest count once, and a warp whose lanes
-    died early runs the remaining rounds alone."""
+    died early runs the remaining rounds alone.
+
+    A warp waits for the others' counts at most 10 s and then traps (a lane
+    below -2^24, whose a + 1 no longer grows, would run forever, as the
+    reference's loop does).  A device-side trap is not an ordinary launch
+    error: the next synchronizing call raises, and the process's CUDA
+    context stays unusable, so every later CUDA call of the process fails."""
     device = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, torch.float32, P1_SHAPE, device)
     if device.type == "cpu":
@@ -166,7 +194,11 @@ def p3_reshape_plain(x):
 
 def p3_reshape(x):
     """P3: x float32 [rows, 128] -> 2x through a [1, rows * 128] view and
-    back -> [rows, 128]."""
+    back -> [rows, 128], bit for bit x * 2, any rows >= 1 (a 64-bit index).
+    The kernel: a float4 a thread with streaming loads and stores, 256
+    threads a block.  x must start on 16 bytes (a tensor of its own does):
+    a view that does not is refused by the launcher and raises here, as P2's
+    operands are; it is never read in pieces or run on the plain version."""
     device = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, torch.float32, (None, LANES), device)
     if x.shape[0] == 0:

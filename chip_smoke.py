@@ -125,12 +125,16 @@ exit — if any phase fails:
      different rounds, on warp 0 dying in round 1 beside lanes that take 50,
      on one surviving lane, on lanes all dead after one round and on a NaN
      lane (p1_inputs(), each with its exact round count); P2 also at
-     [1024,48] @ [48,1024] (three K steps).  The SHA-256 of P1's and P2's
-     outputs on each input is printed, so that two trees run in one call
-     can be held to the same bits.  Tolerances: P1 rtol 1e-5 (the kernel
-     contracts one multiply-add); P2 1e-5 of the largest entry (the order of
-     the sum over K), with torch.backends.cuda.matmul.allow_tf32 False; P3,
-     P4 (value and row) and P5 exact.  Each beside the one PyTorch call that
+     [1024,48] @ [48,1024] (three K steps); P3 also at a card-filling
+     [2^21,128] (1 GiB in, 1 GiB out: bound by its bytes, 0.641 ms) with
+     its library call, and bit for bit against x * 2 at [2^24 + 1,128],
+     where rows x 128 passes 2^31 (compared a chunk of rows at a time).
+     The SHA-256 of P1's, P2's and P3's outputs on each input is printed,
+     so that two trees run in one call can be held to the same bits.
+     Tolerances: P1 rtol 1e-5 (the kernel contracts one multiply-add); P2
+     1e-5 of the largest entry (the order of the sum over K), with
+     torch.backends.cuda.matmul.allow_tf32 False; P3, P4 (value and row)
+     and P5 exact.  Each beside the one PyTorch call that
      computes the same function, where there is one (library_ms); and the
      device-side durations of the kernel and the library call
      (torch.profiler's CUDA trace, 50 calls), which the host's launch path
@@ -216,10 +220,14 @@ def cuda_ms(fn, reps, warm=True):
 
 def device_ms(fn, reps):
     """Mean device-side milliseconds of fn() over `reps` calls: the summed
-    durations of the kernels (and memsets) the calls ran, from
+    durations of the kernels (and memsets) a call runs, from
     torch.profiler's CUDA trace, so neither the host's launch path nor the
-    gaps between launches count.  -> (ms or None where the trace holds no
-    device activity, the names of what ran)."""
+    gaps between launches count.  A kernel traced on at least half the
+    calls counts its mean over the launches the trace holds (which can be a
+    few short of the calls made: an H100 trace dropped 1 of 50 and 3 of 20)
+    times its launches a call; one traced less often (a one-off memset)
+    counts its total over the calls.  -> (ms or None where the trace holds
+    no device activity, the names of what ran)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -233,8 +241,10 @@ def device_ms(fn, reps):
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    total_us = sum(e.self_device_time_total for e in rows)
-    return (total_us / 1e3 / reps if rows else None), sorted(
+    total_us = sum(e.self_device_time_total / e.count
+                   * max(1, round(e.count / reps)) if 2 * e.count >= reps
+                   else e.self_device_time_total / reps for e in rows)
+    return (total_us / 1e3 if rows else None), sorted(
         e.key[:60] for e in rows)
 
 
@@ -367,7 +377,7 @@ def sha256(*tensors):
 
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        h.update(t.detach().cpu().contiguous().numpy())
     return h.hexdigest()[:16]
 
 
@@ -1588,11 +1598,13 @@ def tool_phases(dev, smi):
                 f"{entry['share_of_bound']:.2%} of the kernel's time); max "
                 f"abs err {err:.3e}")
         if lib is not None:
-            library[key], _ = cuda_ms(lib, 200)
-            library_device[key], lib_names = device_ms(lib, 50)
-            lib_dev = library_device[key]
-            line += (f"; library call {library[key] * 1e3:.2f} us (device-"
-                     f"side {'not measured' if lib_dev is None else f'{lib_dev * 1e3:.2f} us'}"
+            entry["library_ms"], _ = cuda_ms(lib, 200)
+            entry["library_device_ms"], lib_names = device_ms(lib, 50)
+            library.setdefault(key, entry["library_ms"])
+            library_device.setdefault(key, entry["library_device_ms"])
+            lib_dev = entry["library_device_ms"]
+            line += (f"; library call {entry['library_ms'] * 1e3:.2f} us "
+                     f"(device-side {'not measured' if lib_dev is None else f'{lib_dev * 1e3:.2f} us'}"
                      f": {lib_names})")
         log(line + f" on {smi}")
         checks[key].append(entry)
@@ -1631,9 +1643,36 @@ def tool_phases(dev, smi):
                     if k == 16 else None)[0]
         p2_digests[label] = sha256(c)
         log(f"[probes] P2 {label}: sha256 {p2_digests[label]}")
+    # P3 at the tool's [8,128] (its launch floor) and at a card-filling
+    # [2^21,128] (1 GiB in, 1 GiB out: a stream through device memory, bound
+    # by its bytes), each beside x.reshape(1, -1) * 2; then bit for bit at
+    # [2^24 + 1,128], where rows x 128 passes 2^31 (x, out and a compare a
+    # chunk of rows at a time, ~18 GiB).
     (x3,) = ref["p3_reshape"]
-    p_check("p3", "P3 [8,128]", pp.p3_reshape, pp.p3_reshape_plain, (x3,),
-            1024, 2 * 1024 * 4, lib=lambda: x3.reshape(1, -1) * 2.0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x3_card = torch.randn((1 << 21, 128), generator=gen, device=dev)
+    p3_digests = {}
+    for label, x in (("[8,128]", x3), ("[2^21,128]", x3_card)):
+        out = p_check("p3", f"P3 {label}", pp.p3_reshape, pp.p3_reshape_plain,
+                      (x,), x.numel(), 2 * x.numel() * 4,
+                      lib=lambda x=x: x.reshape(1, -1) * 2.0)[0]
+        p3_digests[label] = sha256(out)
+        log(f"[probes] P3 {label}: sha256 {p3_digests[label]}")
+    del x3_card, out
+    torch.cuda.empty_cache()
+    x = torch.randn(((1 << 24) + 1, 128), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    out = pp.p3_reshape(x)
+    torch.cuda.synchronize()
+    off = sum(int((out[r:r + (1 << 22)].view(torch.int32)
+                   != (x[r:r + (1 << 22)] * 2.0).view(torch.int32)).sum())
+              for r in range(0, x.shape[0], 1 << 22))
+    log(f"[probes] P3 [2^24+1,128] (rows x 128 past 2^31): {off} of "
+        f"{x.numel()} elements off x * 2 ({time.perf_counter() - t0:.2f} s "
+        f"with the compare)")
+    check(off == 0, f"P3 [2^24+1,128]: {off} elements off x * 2")
+    del x, out
+    torch.cuda.empty_cache()
     (t4,) = ref["p4_minpack"]
     tie_t = t4.clone()
     tie_t[400, 5] = tie_t[17, 5] = 0.5
@@ -1869,7 +1908,8 @@ def tool_phases(dev, smi):
     log(f"[launches] over the tool path (phases 23-25): {launches}")
     return entries, launches, {
         "probe_build_s": build_s, "tool_leg_launches": legs,
-        "probe_sha256": {"p1": p1_digests, "p2": p2_digests},
+        "probe_sha256": {"p1": p1_digests, "p2": p2_digests,
+                         "p3": p3_digests},
         "v3_time_over_prod": v3_speedup,
         "fp32_probe_rows": rows, "grad_bench_steps": steps,
         "graft_entry_s": entry_s, "graft_entry_vs_k1": entry_vs,

@@ -39,6 +39,32 @@ def test_import_does_not_load_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_reference_package_names_import_without_jax():
+    """The reference's package-level names (`kernels.render_pallas`,
+    `kernels.cluster_scene`, `kernels.ClusterPlan`, `utils.trace_profile`)
+    import from the port's packages on a CPU-only torch, with no JAX loaded
+    and no kernel built."""
+    code = (
+        "import sys\n"
+        "from bevy_raytrace_tpu_torch.kernels import (ClusterPlan,\n"
+        "    cluster_scene, render_pallas)\n"
+        "from bevy_raytrace_tpu_torch.utils import trace_profile\n"
+        "import bevy_raytrace_tpu_torch.kernels.record as k2\n"
+        "assert render_pallas is k2.render_pallas\n"
+        "assert callable(cluster_scene) and callable(trace_profile)\n"
+        "assert isinstance(ClusterPlan, type)\n"
+        "assert k2._k2_launcher.cache_info().currsize == 0\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith("
+        "('jax.', 'bevy_raytrace_tpu.')) or k == 'bevy_raytrace_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_no_module_imports_jax():
     pattern = re.compile(r"^\s*(import jax|from jax\b|import bevy_raytrace_tpu\b"
                          r"(?!_torch)|from bevy_raytrace_tpu\b(?!_torch))",

@@ -257,6 +257,60 @@ def test_p4_nan_never_wins(nan_rows):
         assert not np.isnan(m[3]) and row[3] not in nan_rows
 
 
+@pytest.mark.parametrize("rows", [1, 8, 37])
+def test_p3_matches_numpy_at_any_row_count(rows):
+    """P3 against numpy's x * 2, bit for bit, at one row, the tool's eight
+    and a count that fills no block of the kernel, on seeded normals with
+    -0.0, the smallest subnormal, +-inf and the largest float (whose double
+    is inf) among them.  `test_torch_cuda.py` holds the kernel to the plain
+    version at these counts and at 2^21 rows."""
+    rs = np.random.RandomState(100 + rows)
+    x = rs.randn(rows, 128).astype(np.float32)
+    specials = np.array([-0.0, np.float32(1.4e-45), np.inf, -np.inf,
+                         np.finfo(np.float32).max], np.float32)
+    idx = rs.permutation(x.size)[:specials.size]
+    x.reshape(-1)[idx] = specials
+    got = pp.p3_reshape(torch.from_numpy(x)).numpy()
+    assert got.shape == (rows, 128) and got.dtype == np.float32
+    with np.errstate(over="ignore"):  # the largest float doubles to inf
+        want = x * 2
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_launch_refuses_an_integer_that_does_not_fit_its_slot():
+    """P3's row count is bound as a 64-bit integer, and `_launch` refuses an
+    integer that does not fit its ctypes slot before anything is built or
+    launched (ctypes would pass 2^31 in a c_int as -2^31)."""
+    import ctypes
+
+    assert pp.SIGNATURES["brt_p3_reshape"][2] is ctypes.c_int64
+    assert all(t is not ctypes.c_int for t in pp.SIGNATURES["brt_p3_reshape"])
+    calls = []
+
+    class Fn:
+        argtypes = pp.SIGNATURES["brt_p2_dot"]
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    before = pp.p2_dot.launches
+    with pytest.raises(ValueError, match="c_int"):
+        pp._launch(pp.p2_dot, lambda: {"brt_p2_dot": Fn()}, "brt_p2_dot",
+                   torch.device("cuda"), 0, 0, 0, 1 << 31, 64, 16)
+    assert not calls and pp.p2_dot.launches == before
+    with pytest.raises(ValueError):
+        pp._check_ints("brt_p4_min", pp.SIGNATURES["brt_p4_min"],
+                       (0, 0, 0, -(1 << 31) - 1, 128))
+    pp._check_ints("brt_p3_reshape", pp.SIGNATURES["brt_p3_reshape"],
+                   (0, 0, (1 << 31) + 5))
+    pp._check_ints("brt_p2_dot", pp.SIGNATURES["brt_p2_dot"],
+                   (0, 0, 0, (1 << 31) - 1, 64, 16))
+    with pytest.raises(ValueError):
+        pp._check_ints("brt_v1_root_check",
+                       vp.SIGNATURES["brt_v1_root_check"], (-1, 1))
+
+
 # --- V1-V3: the tool's kernel factories at (256, 1024), 3 rounds -------------
 
 
