@@ -54,15 +54,10 @@ def dryrun_multichip(n_devices: int, device=None, timeout: float = 600.0):
     rank: the loss, the largest gradients, the mesh), or raise with the
     failing rank's output.  `hosts` is 2 when `n_devices` is even and above
     1, as the reference arranges its mesh."""
-    import json
-    import os
-    import socket
-    import subprocess
-    import sys
-
     import torch
 
     from bevy_raytrace_tpu_torch.device import resolve
+    from bevy_raytrace_tpu_torch.shard.worker import launch_ranks
 
     n = int(n_devices)
     if n < 1:
@@ -72,30 +67,4 @@ def dryrun_multichip(n_devices: int, device=None, timeout: float = 600.0):
         raise ValueError(f"{n} ranks need {n} CUDA devices, found "
                          f"{torch.cuda.device_count()}")
     hosts = 2 if n % 2 == 0 and n > 1 else 1
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-    cmd = [sys.executable, "-m", "bevy_raytrace_tpu_torch.shard.worker",
-           "--world", str(n), "--hosts", str(hosts), "--addr",
-           f"127.0.0.1:{port}", "--dryrun"]
-    if dev.type != "cuda":
-        cmd += ["--device", str(dev)]
-    procs = [subprocess.Popen(cmd + ["--rank", str(rank)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for rank in range(n)]
-    reports = []
-    try:
-        for rank, p in enumerate(procs):
-            out, err = p.communicate(timeout=timeout)
-            if p.returncode != 0:
-                raise RuntimeError(
-                    f"dry-run rank {rank} of {n} failed:\n{out}\n{err}")
-            reports.append(json.loads(out.strip().splitlines()[-1]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    return reports
+    return launch_ranks(n, dev, ["--dryrun"], hosts, timeout)

@@ -2,7 +2,8 @@
 against the single-process ones, over a real `torch.distributed` group.
 
     python -m bevy_raytrace_tpu_torch.shard.worker --rank R --world N \\
-        --hosts H --addr HOST:PORT [--device cpu]
+        --hosts H --addr HOST:PORT [--device cpu] \\
+        [--step W H SPP DEPTH [--repeats N] [--trace-dir DIR]]
 
 Start N of them (ranks 0..N-1, one per device; `--device cpu` runs them on
 the CPU over gloo, as the tests do).  Every rank renders baseline_config2
@@ -18,9 +19,15 @@ at a small size both ways and holds:
   * no collective in a forward without `gather`, exactly one all-reduce in
     a backward, of (11 S + 16) * 4 bytes in the fast backward.
 
-Prints one JSON line of what it counted and exits 0, or raises.
+With `--step W H SPP DEPTH` it then times the sharded workload at that
+shape on the RTiOW final scene (`timed_steps`: K1's sharded forward and the
+sharded fast-gradient step, the best of `--repeats`; with `--trace-dir
+DIR`, rank 0 writes a `trace_profile` trace of one more gradient step).
+Prints one JSON line of what it counted and timed and exits 0, or raises.
 
-With `--dryrun` a rank runs `dryrun_step` instead (`graft_entry.
+`launch_ranks(world, device, args)` starts the ranks of one world and
+collects their lines (`graft_entry.dryrun_multichip` and `tools.scaling`
+use it).  With `--dryrun` a rank runs `dryrun_step` instead (`graft_entry.
 dryrun_multichip` starts the ranks that way): one full training step and one
 sharded fast-gradient step at tiny shapes, finite or an error.
 """
@@ -28,9 +35,12 @@ sharded fast-gradient step at tiny shapes, finite or an error.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import sys
+import time
 
 
 def _close(got, want, what):
@@ -113,6 +123,123 @@ def dryrun_step(mesh) -> dict:
             "fast_all_reduces": fast.stats["all_reduces"]}
 
 
+def timed_steps(mesh, shape, repeats: int, trace_dir=None) -> dict:
+    """The sharded workload on this rank, timed: the RTiOW final scene
+    (seed 0, 486 spheres) at `shape` = (width, height, spp, depth).  K1's
+    sharded forward (`render_mxu_sharded`, the stripe only) and one sharded
+    fast-gradient step of d mean(img^2) / d centers at frame 1 (K2 culled
+    by a plan at cluster size 12, then K3 and the one all-reduce), as the
+    bench's `grad_flagship` leg takes it single-process.  Each runs once
+    warm, then `repeats` times, every run begun after a barrier and ended at
+    the device's end (host clock).  With `trace_dir`, rank 0 writes a
+    `trace_profile` trace of one more gradient step (every rank takes it:
+    its backward is a collective).  -> {"shape", "paths", "spheres",
+    "all_reduce_bytes" (the gradient's payload), "frame_s", "step_s" (the
+    times of this rank's runs)}.  Raises on a black or non-finite frame or
+    a non-finite gradient."""
+    import torch
+    import torch.distributed as dist
+
+    from bevy_raytrace_tpu_torch import RenderConfig, scenes
+    from bevy_raytrace_tpu_torch.inverse import make_fast_renderer_sharded
+    from bevy_raytrace_tpu_torch.kernels import cluster_scene
+    from bevy_raytrace_tpu_torch.shard import render_mxu_sharded
+    from bevy_raytrace_tpu_torch.utils.metrics import trace_profile
+
+    width, height, spp, depth = shape
+    cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                       max_depth=depth)
+    scene, _ = scenes.rtiow_final_scene(seed=0)
+    cam = scenes.rtiow_final_camera(cfg.aspect)
+    fast = make_fast_renderer_sharded(
+        cfg, mesh, clusters=cluster_scene(scene, cluster_size=12))
+
+    def sync(out):
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        return out
+
+    def frame():
+        with torch.no_grad():
+            return sync(render_mxu_sharded(scene, cam, cfg, mesh, 1))
+
+    def step():
+        c = scene.centers.clone().requires_grad_(True)
+        stripe = fast(dataclasses.replace(scene, centers=c), cam, 1)
+        loss = torch.sum(stripe ** 2) / (cfg.num_pixels * 3)
+        (grad,) = torch.autograd.grad(loss, c)
+        return sync(grad)
+
+    def timed(fn):
+        out = fn()
+        times = []
+        for _ in range(repeats):
+            dist.barrier()
+            sync(None)
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, times
+
+    img, frame_s = timed(frame)
+    mean = float(img.mean())
+    if not (math.isfinite(mean) and mean > 0.0):
+        raise AssertionError(f"sharded frame mean {mean}: not a render")
+    grad, step_s = timed(step)
+    if not bool(torch.isfinite(grad).all()):
+        raise AssertionError("sharded fast gradient: non-finite")
+    if trace_dir:
+        with (trace_profile(trace_dir) if mesh.rank == 0
+              else contextlib.nullcontext()):
+            step()
+    return {"shape": [width, height, spp, depth],
+            "paths": cfg.rays_per_frame, "spheres": scene.count,
+            "all_reduce_bytes": fast.stats["all_reduce_bytes"],
+            "frame_s": frame_s, "step_s": step_s}
+
+
+def launch_ranks(world: int, device, args=(), hosts: int = 1,
+                 timeout: float = 600.0) -> list:
+    """Start `world` ranks of this worker on a free local port, with `args`
+    added to each command line -> their JSON lines, in rank order.  On a
+    CUDA `device` the ranks take nccl, one card each; otherwise they get
+    `--device` (gloo).  Raises RuntimeError with a failing rank's output;
+    every process has ended when it returns or raises."""
+    import os
+    import socket
+    import subprocess
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "bevy_raytrace_tpu_torch.shard.worker",
+           "--world", str(world), "--hosts", str(hosts), "--addr",
+           f"127.0.0.1:{port}", *args]
+    if device.type != "cuda":
+        cmd += ["--device", str(device)]
+    procs = [subprocess.Popen(cmd + ["--rank", str(rank)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for rank in range(world)]
+    reports = []
+    try:
+        for rank, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"rank {rank} of {world} failed:\n{out}\n{err}")
+            reports.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return reports
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rank", type=int, required=True)
@@ -123,6 +250,16 @@ def main(argv=None) -> int:
                     help='"cpu" runs on the CPU over gloo; default: CUDA')
     ap.add_argument("--width", type=int, default=64)
     ap.add_argument("--height", type=int, default=32)
+    ap.add_argument("--step", type=int, nargs=4, default=None,
+                    metavar=("W", "H", "SPP", "DEPTH"),
+                    help="time the sharded workload at this shape on the "
+                         "RTiOW final scene (timed_steps)")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="timed runs of each, after a warm one")
+    ap.add_argument("--trace-dir", default=None,
+                    help="with --step, rank 0 writes a torch.profiler "
+                         "trace of one sharded fast-gradient step to "
+                         "DIR/trace.json")
     ap.add_argument("--dryrun", action="store_true",
                     help="run one tiny training step and one fast-gradient "
                          "step instead of the self-check")
@@ -273,6 +410,11 @@ def main(argv=None) -> int:
                                ref(scene, cam, cfg, frame)):
                 raise AssertionError(f'Renderer("{backend}") frame {frame}')
 
+    timed = {}
+    if args.step:
+        timed["timed"] = timed_steps(mesh, args.step, args.repeats,
+                                     args.trace_dir)
+
     dist.barrier()
     dist.destroy_process_group()
     print(json.dumps({
@@ -283,7 +425,7 @@ def main(argv=None) -> int:
         "forward_collectives": forward_collectives,
         "wavefront_backward_all_reduces": wavefront_all_reduces,
         "fast_backward_all_reduces": fast_all_reduces,
-        "all_reduce_bytes": sorted(payload)}), flush=True)
+        "all_reduce_bytes": sorted(payload), **timed}), flush=True)
     return 0
 
 

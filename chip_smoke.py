@@ -9,9 +9,11 @@ through the K2 (recording forward) and K3 (replay gradient) CUDA kernels,
 the sharded gradient path (one process per device on torch.distributed)
 through K2/K4 (the dense-sweep recorder) and K3 in stripe mode, the
 command line (`cli render | animate | serve | inverse`, in-process) with
-K2's cluster-culled traversal, and the tool path (`tools.proto_probes`,
+K2's cluster-culled traversal, the tool path (`tools.proto_probes`,
 `tools.fp32_probe`, `tools.grad_bench`, `graft_entry`) through the probe
-kernels P1-P5 and V1-V3 — and fails loudly — a traceback and a nonzero
+kernels P1-P5 and V1-V3, and the bench (`bench_torch.py`) with the sharding
+record (`tools.scaling`) and the frame loops (`tools.ref_probe`) through
+K1-K4 — and fails loudly — a traceback and a nonzero
 exit — if any phase fails:
 
   1. environment: torch/CUDA versions, the card (nvidia-smi), nvcc;
@@ -162,7 +164,23 @@ exit — if any phase fails:
      and its fn run once on the card, held against K1's image of the same
      frame under parity.COMPILED; `graft_entry.dryrun_multichip(1)`: one
      rank on the card in an nccl group, a finite training step and a finite
-     fast-gradient step.
+     fast-gradient step;
+ 26. the port's bench, the sharding record and the frame loops:
+     `bench_torch.main(["--quick", "--repeats", "1"])` in this process with
+     its stdout captured and K1-K4's counts set to 0 before it and read
+     after it, held to exact numbers (K1 11: the gate and its session, the
+     reference workload, the flagship frames; K2 7: the gate culled, grad_fast,
+     grad_flagship; K3 9; K4 4: the gate, grad_flagship_sweep); its one
+     JSON line must have bench.py's keys (with
+     `grad_torch_paths_per_s` for `grad_xla_paths_per_s`) plus
+     `grad_flagship_sweep_paths_per_s` and `device`, `verify == "pass"`
+     and every rate finite and > 0; `tools.scaling.main(["--worlds", "1",
+     ...])` (one `shard.worker` rank on nccl: 0 forward collectives, one
+     all-reduce of (11 S + 16) x 4 bytes per fast backward, K1's sharded
+     frame and the sharded fast-gradient step timed on rtiow at
+     1200x800x256 depth 8, a trace written);
+     `tools.ref_probe.main(["--frames", "2", "--skip-spp64"])` (the
+     reference frame at 16 spp, sync and pipelined, finite rates).
 
 Every kernel entry carries bound_ms, the least time the card could take for
 the entry's shape: the larger of the bytes the function must move (each
@@ -1916,6 +1934,113 @@ def tool_phases(dev, smi):
         "graft_dryrun": report, "graft_dryrun_s": dry_s}
 
 
+def bench_phases(dev, smi):
+    """Phase 26: the port's bench, the sharding record and the frame loops,
+    each through its entry point in this process.  Returns (K1-K4's launch
+    counts over the bench, extra stats)."""
+    import contextlib
+    import io as stdio
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    import bench_torch
+    from bevy_raytrace_tpu_torch.kernels import record as k2
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
+    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
+    from bevy_raytrace_tpu_torch.tools import ref_probe, scaling
+
+    def stdout_of(fn):
+        """fn() with stdout captured -> (seconds, the lines it printed)."""
+        out = stdio.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = fn()
+        secs = time.perf_counter() - t0
+        check(rc == 0, f"{fn} returned {rc}")
+        return secs, out.getvalue().strip().splitlines()
+
+    def rate(v):
+        return isinstance(v, float) and math.isfinite(v) and v > 0.0
+
+    # ---- 26. bench_torch, tools.scaling, tools.ref_probe --------------------
+    wrappers = {"k1": k1.render_lanes, "k2": k2.record_frame,
+                "k3": k3.replay_grad, "k4": k4.sweep_record_frame}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    bench_s, lines = stdout_of(
+        lambda: bench_torch.main(["--quick", "--repeats", "1"]))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"[launches] bench_torch --quick: {launches}")
+    # K1: the gate 3 (8 spp is all probe: `cuda` 1, the session's probe
+    # and cached frames 1 each), the reference workload 5 (its probe frame
+    # 2, three cached frames), the flagship frames 3 (16 spp is all probe,
+    # then frames 1 and 2); K2: the gate 1, grad_fast and grad_flagship 3
+    # steps each; K3: 3 steps of each fast leg; K4: the gate 1,
+    # grad_flagship_sweep 3.
+    want = {"k1": 11, "k2": 7, "k3": 9, "k4": 4}
+    check(launches == want, f"the bench launched {launches}, expected "
+                            f"exactly {want}")
+    check(len(lines) == 1, f"bench_torch printed {len(lines)} lines")
+    line = json.loads(lines[0])
+    log(f"[bench] --quick in {bench_s:.1f} s on {smi}: {lines[0]}")
+    check(set(line) == bench_torch.KEYS,
+          f"bench keys: missing {bench_torch.KEYS - set(line)}, extra "
+          f"{set(line) - bench_torch.KEYS}")
+    check(line["verify"] == "pass", f"bench verify: {line['verify']}")
+    rates = {k: v for k, v in line.items()
+             if k not in ("metric", "unit", "verify", "device")}
+    check(all(rate(v) for v in rates.values()), f"bench rates: {rates}")
+    check(line["device"]["name"] in smi
+          and line["device"]["power_limit_w"] > 0,
+          f"bench device {line['device']} against {smi}")
+
+    # The worker rank is a process of its own: hand it the cached blocks.
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="brt_scaling_")
+    try:
+        out = os.path.join(tmp, "SCALING_torch.json")
+        scaling_s, _ = stdout_of(lambda: scaling.main(
+            ["--worlds", "1", "--out", out, "--trace-dir",
+             os.path.join(tmp, "trace")]))
+        with open(out) as f:
+            record = json.load(f)
+        (world,) = record["worlds"]
+        log(f"[scaling] world 1 in {scaling_s:.1f} s on {smi}: "
+            f"{json.dumps(world)}")
+        timed = world["timed"]
+        check(world["world"] == 1 and world["backend"] == "nccl"
+              and world["devices"][0].startswith("cuda")
+              and world["matches_single_process"]
+              and world["forward_collectives"]["count"] == 0
+              and world["backward_collectives"]["fast_all_reduces"] == 1
+              and world["backward_collectives"]["fast_bytes"]
+              == (11 * world["spheres"] + 16) * 4
+              and timed["shape"] == list(scaling.CARD_STEP)
+              and timed["spheres"] == 486
+              and timed["fast_bytes"] == (11 * 486 + 16) * 4
+              and rate(timed["step_s"]) and rate(timed["frame_s"])
+              and os.path.getsize(world["trace"]),
+              f"tools.scaling world 1: {world}")
+    finally:
+        shutil.rmtree(tmp)
+
+    probe_s, lines = stdout_of(
+        lambda: ref_probe.main(["--frames", "2", "--skip-spp64"]))
+    probe = json.loads(lines[-1])
+    log(f"[ref_probe] in {probe_s:.1f} s on {smi}: {lines[-1]}")
+    check(probe["backend"] == "cuda" and rate(probe["spp16_sync_rays_per_s"])
+          and rate(probe["spp16_pipelined_rays_per_s"]),
+          f"tools.ref_probe: {probe}")
+    torch.cuda.empty_cache()
+    return launches, {"bench_line": line, "bench_s": bench_s,
+                      "scaling_world1": world, "scaling_s": scaling_s,
+                      "ref_probe": probe, "ref_probe_s": probe_s}
+
+
 def main() -> int:
     import torch
 
@@ -2126,6 +2251,7 @@ def main() -> int:
     cli_launches, cli_stats = cli_phases(dev, smi, shared,
                                          (ref_scene, ref_cam, ref_cfg))
     tool_entries, tool_launches, tool_stats = tool_phases(dev, smi)
+    bench_launches, bench_stats = bench_phases(dev, smi)
     checks = shared["checks"]
     csrc = "bevy_raytrace_tpu_torch/csrc/"
     entries = [
@@ -2146,6 +2272,7 @@ def main() -> int:
         entry["launches_sharded_path"] = shard_launches[key]
         entry["launches_cli_path"] = cli_launches[key]
         entry["launches_tool_path"] = tool_launches[key]
+        entry["launches_bench_path"] = bench_launches[key]
     entries[1]["launches_cli_path_clustered"] = cli_launches["k2_clustered"]
     # K1's and K4's table modes: the staged table on their main paths
     # (phases 4-5, 15), the global one on the 15,000-sphere scene through
@@ -2174,7 +2301,7 @@ def main() -> int:
                     "reference_frame_ms": frame_ms,
                     "flagship_s": flag_s, "flagship_rays_per_s": flag_rps,
                     **grad_stats, **shard_stats, **cli_stats,
-                    **tool_stats}))
+                    **tool_stats, **bench_stats}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,8 @@ def test_import_does_not_load_jax():
         "       'cli', 'io', 'io.native', 'io.image', 'io.writer',\n"
         "       'kernels.clusters', 'kernels.probes', 'kernels.fp32_probe',\n"
         "       'tools', 'tools.proto_probes', 'tools.fp32_probe',\n"
-        "       'tools.grad_bench', 'graft_entry', 'wavefront.oracle'}\n"
+        "       'tools.grad_bench', 'tools.scaling', 'tools.ref_probe',\n"
+        "       'graft_entry', 'wavefront.oracle'}\n"
         "assert new <= seen, new - seen\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith("
         "('jax.', 'bevy_raytrace_tpu.')) or k == 'bevy_raytrace_tpu')\n"
@@ -65,10 +66,11 @@ def test_reference_package_names_import_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+_NO_JAX = re.compile(r"^\s*(import jax|from jax\b|import bevy_raytrace_tpu\b"
+                     r"(?!_torch)|from bevy_raytrace_tpu\b(?!_torch))", re.M)
+
+
 def test_no_module_imports_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax\b|import bevy_raytrace_tpu\b"
-                         r"(?!_torch)|from bevy_raytrace_tpu\b(?!_torch))",
-                         re.M)
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 15
     names = {str(f.relative_to(PKG)) for f in files}
@@ -78,19 +80,22 @@ def test_no_module_imports_jax():
             "io/image.py", "io/writer.py", "kernels/clusters.py",
             "kernels/probes.py", "kernels/fp32_probe.py", "tools/__init__.py",
             "tools/proto_probes.py", "tools/fp32_probe.py",
-            "tools/grad_bench.py", "graft_entry.py",
-            "wavefront/oracle.py"} <= names
-    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+            "tools/grad_bench.py", "tools/scaling.py", "tools/ref_probe.py",
+            "graft_entry.py", "wavefront/oracle.py"} <= names
+    offenders = [str(f) for f in files if _NO_JAX.search(f.read_text())]
     assert not offenders
 
 
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py runs on a machine without JAX."""
     text = (PKG.parent / "chip_smoke.py").read_text()
-    pattern = re.compile(r"^\s*(import jax|from jax\b|import bevy_raytrace_tpu\b"
-                         r"(?!_torch)|from bevy_raytrace_tpu\b(?!_torch))",
-                         re.M)
-    assert not pattern.search(text)
+    assert not _NO_JAX.search(text)
+
+
+def test_bench_imports_no_jax():
+    """bench_torch.py runs on a machine without JAX."""
+    text = (PKG.parent / "bench_torch.py").read_text()
+    assert not _NO_JAX.search(text)
 
 
 def test_cli_help_needs_no_device():
@@ -105,14 +110,18 @@ def test_cli_help_needs_no_device():
 
 
 def test_tools_help_needs_no_device():
-    """Every tool prints its usage on any machine, and importing one builds
-    nothing."""
-    for tool in ("proto_probes", "fp32_probe", "grad_bench"):
-        out = subprocess.run(
-            [sys.executable, "-m", f"bevy_raytrace_tpu_torch.tools.{tool}",
-             "--help"], cwd=PKG.parent, capture_output=True, text=True,
-            timeout=120)
+    """Every tool and the bench print their usage on any machine, and
+    asking for it builds nothing."""
+    def listing():
+        return sorted((PKG / "_build").glob("*"))
+
+    before = listing()
+    for cmd in [["-m", f"bevy_raytrace_tpu_torch.tools.{tool}"]
+                for tool in ("proto_probes", "fp32_probe", "grad_bench",
+                             "scaling", "ref_probe")] + [["bench_torch.py"]]:
+        out = subprocess.run([sys.executable, *cmd, "--help"],
+                             cwd=PKG.parent, capture_output=True, text=True,
+                             timeout=120)
         assert out.returncode == 0, out.stderr
         assert "--device" in out.stdout
-    assert not list((PKG / "_build").glob("libprobes-*")) and not list(
-        (PKG / "_build").glob("libfp32_probe-*"))
+    assert listing() == before

@@ -17,11 +17,6 @@ report.
 """
 
 import dataclasses
-import json
-import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import jax
@@ -55,51 +50,25 @@ from bevy_raytrace_tpu_torch.shard import (
     render_mxu_sharded,
     render_sharded,
 )
+from bevy_raytrace_tpu_torch.shard.worker import launch_ranks
+from bevy_raytrace_tpu_torch.tools import scaling
 from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
 from bevy_raytrace_tpu_torch.wavefront.render import render
 
 torch.set_num_threads(2)
 set_default_device("cpu")  # the port defaults to the CUDA device
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(width=64, height=32, samples_per_pixel=2, max_depth=3)
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _run_workers(world, hosts):
-    addr = f"127.0.0.1:{_free_port()}"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "bevy_raytrace_tpu_torch.shard.worker",
-         "--rank", str(rank), "--world", str(world), "--hosts", str(hosts),
-         "--addr", addr, "--device", "cpu"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=_REPO) for rank in range(world)]
-    reports = []
-    try:
-        for rank, p in enumerate(procs):
-            out, err = p.communicate(timeout=300)
-            assert p.returncode == 0, f"rank {rank} failed:\n{out}\n{err}"
-            reports.append(json.loads(out.strip().splitlines()[-1]))
-    except subprocess.TimeoutExpired:
-        pytest.fail("a sharded worker timed out")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    return reports
 
 
 @pytest.mark.parametrize("world,hosts", [(2, 2), (4, 2)],
                          ids=["2_processes", "2x2_mesh"])
 def test_process_group_matches_single_process(world, hosts):
-    reports = _run_workers(world, hosts)
+    # The ranks also time the sharded workload on rtiow (486 spheres) at
+    # tools.scaling's CPU shape, once after a warm run.
+    reports = launch_ranks(world, torch.device("cpu"), [
+        "--step", *map(str, scaling.CPU_STEP), "--repeats", "1"], hosts,
+        timeout=300)
     chips = world // hosts
     local = KW["width"] * KW["height"] // world
     for rank, r in enumerate(reports):
@@ -116,6 +85,19 @@ def test_process_group_matches_single_process(world, hosts):
         assert r["wavefront_backward_all_reduces"] == 1
         assert r["fast_backward_all_reduces"] == [1] * 8
         assert r["all_reduce_bytes"] == [(11 * r["spheres"] + 16) * 4]
+        assert r["timed"]["all_reduce_bytes"] == (11 * 486 + 16) * 4
+    # The sharding record tools.scaling writes for this world.
+    record = scaling.summarize(reports)
+    assert record["world"] == world and record["backend"] == "gloo"
+    assert record["forward_collectives"] == {"count": 0, "bytes": 0}
+    assert record["backward_collectives"]["fast_all_reduces"] == 1
+    assert record["backward_collectives"]["fast_bytes"] == (
+        11 * reports[0]["spheres"] + 16) * 4
+    timed = record["timed"]
+    assert timed["shape"] == list(scaling.CPU_STEP)
+    assert timed["spheres"] == 486 and timed["fast_bytes"] == 21448
+    assert len(timed["step_s_by_rank"]) == world
+    assert timed["step_s"] > 0.0 and timed["frame_s"] > 0.0
 
 
 def _torch_grads(render_fn, scene, cam, w):

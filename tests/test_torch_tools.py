@@ -1,5 +1,6 @@
 """The port's tool entry points on the CPU: `tools.proto_probes`,
-`tools.fp32_probe`, `tools.grad_bench` and `graft_entry`.
+`tools.fp32_probe`, `tools.grad_bench`, `tools.scaling`'s record,
+`tools.ref_probe` and `graft_entry`.
 
 On the CPU every probe runs its plain PyTorch version (the wrappers take it
 because the tensors lie on the CPU); the rates of the card are measured on
@@ -18,7 +19,13 @@ import torch
 
 from bevy_raytrace_tpu_torch import graft_entry, set_default_device
 from bevy_raytrace_tpu_torch import scenes as tsc
-from bevy_raytrace_tpu_torch.tools import fp32_probe, grad_bench, proto_probes
+from bevy_raytrace_tpu_torch.tools import (
+    fp32_probe,
+    grad_bench,
+    proto_probes,
+    ref_probe,
+    scaling,
+)
 
 torch.set_num_threads(2)
 set_default_device("cpu")  # the port defaults to the CUDA device
@@ -165,3 +172,83 @@ def test_dryrun_multichip_on_gloo():
     with pytest.raises(ValueError):
         graft_entry.dryrun_multichip(0)
 
+
+
+def _rank_line(rank, timed=None, **kw):
+    """One `shard.worker` JSON line, as a rank of a 2-rank world prints it
+    on rtiow's 486 spheres, with its timed runs (`timed`: changes to them)."""
+    return {"ok": True, "rank": rank, "device": "cpu", "backend": "gloo",
+            "spheres": 486, "forward_collectives": 0,
+            "wavefront_backward_all_reduces": 1,
+            "fast_backward_all_reduces": [1] * 8,
+            "all_reduce_bytes": [21448],
+            "timed": {"shape": [64, 32, 2, 3], "paths": 4096, "spheres": 486,
+                      "all_reduce_bytes": 21448,
+                      "frame_s": [[0.5, 0.7], [0.7, 0.5]][rank],
+                      "step_s": [2.0 + rank, 1.0 + rank], **(timed or {})},
+            **kw}
+
+
+def test_scaling_summary_counts_and_sizes_collectives():
+    """The counterpart of tests/test_scaling_tool.py's audit case: the ranks'
+    counts folded into the world's record, the fast backward's one
+    all-reduce of (11 S + 16) x 4 bytes; a timed run ends with its slowest
+    rank, and the best run counts."""
+    record = scaling.summarize([_rank_line(0), _rank_line(1)])
+    assert record["world"] == 2 and record["spheres"] == 486
+    assert record["forward_collectives"] == {"count": 0, "bytes": 0}
+    assert record["backward_collectives"] == {
+        "wavefront_all_reduces": 1, "fast_all_reduces": 1,
+        "fast_bytes": (11 * 486 + 16) * 4, "fast_backwards_counted": 8}
+    assert record["backward_collectives"]["fast_bytes"] == 21448
+    assert record["matches_single_process"]
+    timed = record["timed"]
+    # frame runs: rank 0 [0.5, 0.7], rank 1 [0.7, 0.5] -> ends [0.7, 0.7];
+    # step runs: [2.0, 1.0] and [3.0, 2.0] -> ends [3.0, 2.0].
+    assert (timed["frame_s"], timed["step_s"]) == (0.7, 2.0)
+    assert timed["rays_per_s"] == 4096 / 0.7
+    assert timed["paths_per_s"] == 2048.0
+    assert timed["step_s_by_rank"] == [[2.0, 1.0], [3.0, 2.0]]
+    assert (timed["spheres"], timed["fast_bytes"]) == (486, 21448)
+    untimed = [_rank_line(r) for r in (0, 1)]
+    for line in untimed:
+        del line["timed"]
+    assert "timed" not in scaling.summarize(untimed)
+
+
+@pytest.mark.parametrize("lines", [
+    [_rank_line(0, forward_collectives=1),
+     _rank_line(1, forward_collectives=1)],
+    [_rank_line(0), _rank_line(1, all_reduce_bytes=[21452])],
+    [_rank_line(0), _rank_line(1, fast_backward_all_reduces=[1] * 7 + [2])],
+    [_rank_line(0, all_reduce_bytes=[21448, 284])],
+    [_rank_line(0), _rank_line(1, timed={"shape": [32, 32, 2, 3]})],
+    [],
+], ids=["forward_collective", "ranks_disagree_on_bytes",
+        "ranks_disagree_on_counts", "two_payloads",
+        "ranks_disagree_on_the_timed_shape", "no_rank"])
+def test_scaling_summary_refuses_a_bad_record(lines):
+    """The counterpart of the clean-module case: a forward that counted a
+    collective, two ranks that disagree, a backward of two payloads or no
+    rank at all raise."""
+    with pytest.raises(ValueError):
+        scaling.summarize(lines)
+
+
+def test_ref_probe_on_the_cpu(monkeypatch, capsys):
+    """Both frame loops at a few pixels through Renderer("torch"): one JSON
+    line of the four rates, labelled with the CPU."""
+    monkeypatch.setattr(ref_probe, "FRAME", (16, 8, 3))
+    monkeypatch.setattr(ref_probe, "SPPS", (1, 2))
+    assert ref_probe.main(["--frames", "2", "--device", "cpu"]) == 0
+    (line,) = capsys.readouterr().out.strip().splitlines()
+    out = json.loads(line)
+    assert (out.pop("device"), out.pop("backend")) == ("cpu", "torch")
+    assert sorted(out) == sorted(f"spp{s}_{m}_rays_per_s" for s in (1, 2)
+                                 for m in ("sync", "pipelined"))
+    assert all(np.isfinite(v) and v > 0 for v in out.values())
+    assert ref_probe.main(["--frames", "1", "--device", "cpu",
+                           "--skip-spp64"]) == 0
+    assert sorted(json.loads(capsys.readouterr().out)) == [
+        "backend", "device", "spp1_pipelined_rays_per_s",
+        "spp1_sync_rays_per_s"]
