@@ -501,6 +501,7 @@ def cmd_inverse(args):
 
     from bevy_raytrace_tpu_torch.inverse import InverseProblem, optimize
     from bevy_raytrace_tpu_torch.io import write_image
+    from bevy_raytrace_tpu_torch.profile_grad import ball_errors
     from bevy_raytrace_tpu_torch.wavefront.render import render
 
     args.scene = "config1"
@@ -579,6 +580,14 @@ def cmd_inverse(args):
               f"{result.scene.materials.albedo[1].detach().cpu().numpy()} "
               f"(true {scene_true.materials.albedo[1].cpu().numpy()})",
               file=sys.stderr)
+        # One line for scripts: the last loss of this run (nan when it
+        # resumed at its end), the ball's errors at the end and the start.
+        c1, a1 = ball_errors(result.scene, scene_true)
+        c0, a0 = ball_errors(scene_bad, scene_true)
+        last = result.losses[-1] if result.losses else float("nan")
+        print(f"final loss={last:.6g} center_error={c1:.6g} "
+              f"albedo_error={a1:.6g} center_error_start={c0:.6g} "
+              f"albedo_error_start={a0:.6g}", file=sys.stderr)
         with torch.no_grad():
             img = render(result.scene, camera, config, 0)
         if writes:

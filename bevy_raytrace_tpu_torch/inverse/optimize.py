@@ -2,16 +2,19 @@
 `bevy_raytrace_tpu/inverse/optimize.py`).
 
 `optimize` recovers selected scene parameters (sphere centers/radii,
-material albedo/fuzz/ior) from a target image by Adam on `render_loss`,
-drawing fresh Monte-Carlo samples every step (frame == step).
+material albedo/fuzz/ior) from a target image by gradient descent on
+`render_loss`, drawing fresh Monte-Carlo samples every step (frame == step).
 
-Adam is `torch.optim.Adam` at optax.adam's defaults (b1 0.9, b2 0.999,
-eps 1e-8); parameters are leaf tensors on the scene's device.  The
-checkpoint is an .npz of plain arrays keyed by parameter name: the step,
-the parameters and Adam's exp_avg, exp_avg_sq and step.  Divergence from the
-reference: its checkpoint pickles a JAX treedef (which needs JAX to load)
-and its `optimizer=` takes any optax transformation; here the optimizer is
-Adam and nothing is pickled.
+The optimizer is Adam (`torch.optim.Adam` at optax.adam's defaults: b1 0.9,
+b2 0.999, eps 1e-8) unless `optimizer=` gives another; parameters are leaf
+tensors on the scene's device.  The checkpoint is an .npz of plain arrays
+keyed by parameter name: the step, the parameters, and every tensor or
+number of each parameter's optimizer state as `<state key>.<name>` (Adam's:
+exp_avg, exp_avg_sq and step).  Divergences from the reference: its
+checkpoint pickles a JAX treedef (which needs JAX to load), here nothing is
+pickled; its `optimizer=` is an optax transformation, here it is a factory
+`params -> torch.optim.Optimizer`, since a torch optimizer binds to its
+parameters.
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ _SCENE_LEAVES = {
     "fuzz": lambda s: s.materials.fuzz,
     "ior": lambda s: s.materials.ior,
 }
-_ADAM_STATE = ("exp_avg", "exp_avg_sq", "step")
 
 
 def _set_scene_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
@@ -88,57 +90,97 @@ class OptResult:
 
 
 def save_checkpoint(path: str, step: int, params, opt_state) -> None:
-    """Write step, parameters and Adam state to an .npz of plain arrays.
+    """Write step, parameters and optimizer state to an .npz of plain arrays.
 
-    params: {name: tensor}; opt_state: {name: {"exp_avg", "exp_avg_sq",
-    "step"}}, the per-parameter state of torch.optim.Adam."""
+    params: {name: tensor}; opt_state: {name: {key: tensor or number}}, the
+    per-parameter state of a torch optimizer (`opt.state[p]`).  An entry
+    that is None (SGD's momentum_buffer at momentum 0) is not stored."""
     arrays = {"step": np.asarray(step, np.int64)}
     for name, p in params.items():
         arrays[f"param.{name}"] = p.detach().cpu().numpy()
-        for key in _ADAM_STATE:
-            v = opt_state[name][key]
-            arrays[f"{key}.{name}"] = (v.detach().cpu().numpy()
-                                       if isinstance(v, torch.Tensor)
-                                       else np.asarray(v, np.float32))
+        for key, v in opt_state[name].items():
+            if v is None:
+                continue
+            if isinstance(v, torch.Tensor):
+                arrays[f"{key}.{name}"] = v.detach().cpu().numpy()
+            elif isinstance(v, (int, float)):
+                arrays[f"{key}.{name}"] = np.asarray(v)
+            else:
+                raise TypeError(f"optimizer state {key!r} of {name!r} is a "
+                                f"{type(v).__name__}, not a tensor or number")
     np.savez(path, **arrays)
 
 
 def load_checkpoint(path: str, device=None):
     """Read a `save_checkpoint` file -> (step, params, opt_state) on
-    `device` (None: the default device)."""
+    `device` (None: the default device).  opt_state holds every state key
+    the file has, as tensors; 0-d ones (step counters) stay on the CPU, as
+    torch's optimizers keep them."""
     device = resolve(device)
     with np.load(path, allow_pickle=False) as z:
         step = int(z["step"])
         names = [k.split(".", 1)[1] for k in z.files if k.startswith("param.")]
         params = {n: torch.from_numpy(z[f"param.{n}"]).to(device)
                   for n in names}
-        opt_state = {n: {key: torch.from_numpy(z[f"{key}.{n}"])
-                         for key in _ADAM_STATE} for n in names}
-    for st in opt_state.values():
-        st["exp_avg"] = st["exp_avg"].to(device)
-        st["exp_avg_sq"] = st["exp_avg_sq"].to(device)
+        opt_state = {n: {} for n in names}
+        for k in z.files:
+            if "." not in k or k.startswith("param."):
+                continue
+            key, name = k.rsplit(".", 1)
+            v = torch.from_numpy(z[k])
+            opt_state[name][key] = v if v.dim() == 0 else v.to(device)
     return step, params, opt_state
+
+
+def _state_keys(make_opt, params: List[torch.Tensor]):
+    """The state keys `make_opt`'s optimizer keeps per parameter, None
+    entries left out: one step of a fresh optimizer on zero-gradient
+    copies of `params`."""
+    probe = [torch.zeros_like(p).requires_grad_(True) for p in params]
+    opt = make_opt(probe)
+    for p in probe:
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    return [{k for k, v in opt.state[p].items() if v is not None}
+            for p in probe]
 
 
 def optimize(scene: Scene, problem: InverseProblem, steps: int = 200,
              learning_rate: float = 1e-2,
+             optimizer: Optional[Callable[[List[torch.Tensor]],
+                                          torch.optim.Optimizer]] = None,
              checkpoint_path: Optional[str] = None,
              checkpoint_every: int = 50,
              callback: Optional[Callable[[int, float], None]] = None
              ) -> OptResult:
-    """Run Adam on the selected scene parameters.
+    """Run `optimizer` (Adam at `learning_rate` when None) on the selected
+    scene parameters.
 
-    Resumes from `checkpoint_path` if it exists.  Returns the optimized
-    scene and the loss history of the steps run in this call."""
+    `optimizer(params) -> torch.optim.Optimizer` builds the optimizer over
+    the list of parameter tensors; `learning_rate` is then not used.
+    Resumes from `checkpoint_path` if it exists; a checkpoint whose state
+    keys are not the ones this optimizer keeps raises ValueError.  Returns
+    the optimized scene and the loss history of the steps run in this
+    call."""
     names = list(problem.optimizable)
     params = {n: p.detach().clone().requires_grad_(True)
               for n, p in _get_scene_params(scene, names).items()}
-    opt = torch.optim.Adam([params[n] for n in names], lr=learning_rate,
-                           betas=(0.9, 0.999), eps=1e-8)
+    make_opt = optimizer or (lambda ps: torch.optim.Adam(
+        ps, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8))
+    opt = make_opt([params[n] for n in names])
     step_done = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
         step_done, saved, saved_state = load_checkpoint(checkpoint_path,
                                                         scene.device)
+        want = _state_keys(make_opt, [params[n] for n in names])
+        for n, keys in zip(names, want):
+            got = set(saved_state[n])
+            for key in sorted(keys - got) + sorted(got - keys):
+                raise ValueError(
+                    f"checkpoint {checkpoint_path} "
+                    f"{'lacks' if key in keys else 'has'} optimizer state "
+                    f"{key!r} of {n!r}: it holds {sorted(got)}, this "
+                    f"optimizer keeps {sorted(keys)}")
         with torch.no_grad():
             for n in names:
                 params[n].copy_(saved[n])

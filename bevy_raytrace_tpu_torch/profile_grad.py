@@ -98,40 +98,88 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cli_inverse_problem(device, backward: str = "kernel"):
-    """The `cli inverse` problem at its defaults: 1200x800, 64 spp, depth 8,
-    edge_softness 0.01, config1 with the ball's albedo and center perturbed
-    (the reference's cli.py).  Returns (perturbed scene, true scene,
-    InverseProblem on make_fast_renderer(backward=...))."""
+def _perturbed_problem(cfg, target_frame, shift, device, backward, forward):
+    """config1 rendered by the wavefront at `target_frame`; the ball's albedo
+    set to (0.2, 0.8, 0.6) and its center moved by `shift`; the center and
+    albedo optimizable at edge_softness 0.01.  -> (perturbed scene, true
+    scene, InverseProblem)."""
     import torch
 
-    from bevy_raytrace_tpu_torch import RenderConfig, scenes
+    from bevy_raytrace_tpu_torch import scenes
     from bevy_raytrace_tpu_torch.inverse import (
         InverseProblem,
         make_fast_renderer,
     )
     from bevy_raytrace_tpu_torch.wavefront.render import render
 
-    cfg = RenderConfig(width=1200, height=800, samples_per_pixel=64,
-                       max_depth=8)
     scene_true = scenes.baseline_config1_scene(device=device)[0]
     camera = scenes.baseline_config1_camera(cfg.aspect, device=device)
     with torch.no_grad():
-        target = render(scene_true, camera, cfg, 9999)
+        target = render(scene_true, camera, cfg, target_frame)
     albedo = scene_true.materials.albedo.clone()
     albedo[1] = torch.tensor([0.2, 0.8, 0.6], device=device)
     centers = scene_true.centers.clone()
-    centers[1] += torch.tensor([0.25, -0.1, 0.1], device=device)
+    centers[1] += torch.tensor(shift, device=device)
     scene_bad = dataclasses.replace(
         scene_true, centers=centers,
         materials=dataclasses.replace(scene_true.materials, albedo=albedo))
     opt_cfg = cfg.replace(edge_softness=0.01)
-    fast = make_fast_renderer(opt_cfg, backward=backward)
+    render_fn = None
+    if forward != "wavefront":
+        fast = make_fast_renderer(opt_cfg, backward=backward, forward=forward)
+        render_fn = lambda sc, c, cf, fr: fast(sc, c, fr)  # noqa: E731
     problem = InverseProblem(
         config=opt_cfg, camera=camera, target=target,
-        optimizable=("centers", "albedo"),
-        render_fn=lambda sc, c, cf, fr: fast(sc, c, fr))
+        optimizable=("centers", "albedo"), render_fn=render_fn)
     return scene_bad, scene_true, problem
+
+
+def cli_inverse_problem(device, backward: str = "kernel",
+                        forward: str = "pallas"):
+    """The `cli inverse` problem at its defaults: 1200x800, 64 spp, depth 8,
+    edge_softness 0.01, config1 with the ball's albedo and center perturbed
+    (the reference's cli.py).  Returns (perturbed scene, true scene,
+    InverseProblem).  `forward` "pallas" (K2) or "sweep" (K4) differentiates
+    make_fast_renderer(backward=..., forward=...); "wavefront" leaves
+    render_fn None, so the loss differentiates the wavefront `render`."""
+    from bevy_raytrace_tpu_torch import RenderConfig
+
+    cfg = RenderConfig(width=1200, height=800, samples_per_pixel=64,
+                       max_depth=8)
+    return _perturbed_problem(cfg, 9999, [0.25, -0.1, 0.1], device,
+                              backward, forward)
+
+
+def ball_inverse_problem(device, forward: str = "pallas"):
+    """The reference's recovery test (tests/test_inverse.py
+    `test_optimization_reduces_loss_and_recovers`): 32x24, 4 spp, depth 3,
+    the target rendered at frame 12345, the ball's center moved by (0.06,
+    -0.04, 0.05), edge_softness 0.01.  Returns what `cli_inverse_problem`
+    returns, `forward` as there.  The wavefront traces the 4 samples in one
+    pass (spp_chunk 4: the same samples, a quarter of the launches of one
+    pass a sample; the fast renderer does not read it)."""
+    from bevy_raytrace_tpu_torch import RenderConfig
+
+    cfg = RenderConfig(width=32, height=24, samples_per_pixel=4, max_depth=3,
+                       spp_chunk=4)
+    return _perturbed_problem(cfg, 12345, [0.06, -0.04, 0.05], device,
+                              "kernel", forward)
+
+
+def ball_errors(scene, scene_true):
+    """(center error, albedo error) of the ball (sphere 1): the L2 distance
+    of its center and the largest channel error of its albedo, as the
+    reference's recovery test measures them."""
+    c = float((scene.centers[1] - scene_true.centers[1]).norm())
+    a = float((scene.materials.albedo[1]
+               - scene_true.materials.albedo[1]).abs().max())
+    return c, a
+
+
+# The reference recovery test's bars (tests/test_inverse.py): the last loss
+# below LOSS x the first, the center error below CENTER x the initial, the
+# albedo error below ALBEDO.
+RECOVERY_BARS = {"loss": 0.3, "center": 0.4, "albedo": 0.08}
 
 
 def _profile(name, step, out_dir):

@@ -63,14 +63,27 @@ exit — if any phase fails:
      steps with a checkpoint, resumed to 6 steps, and the step-3 checkpoint
      resumed again for the same 3 steps; finite losses, the last below the
      first, the two resumed runs agreeing;
- 11. the flagship gradient (1200x800, 256 spp, depth 8, rtiow_final, d
+ 11. recovery, each run with the counts set to 0 before it and read after
+     it, held to exact numbers: (a) the reference test's problem
+     (tests/test_inverse.py: config1 at 32x24, 4 spp, depth 3, the ball's
+     albedo and center perturbed, edge_softness 0.01, 80 Adam steps at lr
+     1e-2) through the wavefront (no kernel), K2 and K4 (K2 or K4 160, K3
+     160), each clearing the reference's bars (last loss < 0.3x the first,
+     center error < 0.4x the initial, albedo error < 0.08); (b) the `cli
+     inverse` problem of phase 10 at its 120 steps and lr 1.5e-2 through K2
+     and through K4 (K2 or K4 240, K3 240) from the same start: the first
+     loss, the mean of the last 10, the center and albedo errors, s/step,
+     paths/s and a profiled step's idle share logged; each clears the bars
+     with the last-10 mean for the last loss, and K4's last-10 mean lies
+     within 10% of K2's;
+ 12. the flagship gradient (1200x800, 256 spp, depth 8, rtiow_final, d
      mean(img^2) / d centers) unchunked and with grad_spp_chunk=64; finite
      and agreeing to rtol 2e-3;
- 12. K2's and K3's launch counts over phases 10-11 must be > 0 (K3 in its
+ 13. K2's and K3's launch counts over phases 10 and 12 must be > 0 (K3 in its
      shared mode); then the gradient of the 4,096-sphere scene through
      make_fast_renderer, counted (K2 1, K3 1 in its global mode) and held
      against backward="torch" at rtol 2e-3;
- 13. K4 against its plain twin at the gradient bench's shape (edge_softness
+ 14. K4 against its plain twin at the gradient bench's shape (edge_softness
      0.01: winners + runner-up; 0: winners only) and on the 2-sample
      1200x800 slice through sample_base: image under parity.COMPILED, at
      most 2% of residual entries differing, the torch replay of its
@@ -78,25 +91,25 @@ exit — if any phase fails:
      twin (rtol 2e-3); K4's time beside K2's and K1's at the same shape;
      K1's and K4's global table forced against their shared one on the same
      inputs (bit-identical outputs);
- 14. K2, K4 and K3 in stripe mode against their full launches: 4 stripes of
+ 15. K2, K4 and K3 in stripe mode against their full launches: 4 stripes of
      the gradient bench's frame, images and residuals bit-identical,
      cotangents summing to the full launch's (rtol 2e-3);
- 15. the sharded gradient path at full width: a torch.distributed group of
+ 16. the sharded gradient path at full width: a torch.distributed group of
      world size 1 on the nccl backend, then make_fast_renderer_sharded on
      the flagship gradient with forward="pallas" (K2) and forward="sweep"
      (K4), each against the unsharded gradient through the same recorder
-     (rtol 2e-3; K2's is phase 11's, K4's is taken here and held against
+     (rtol 2e-3; K2's is phase 12's, K4's is taken here and held against
      K2's in bulk: the two record different near-tangent paths), timed,
      with the all-reduce's byte count; render_mxu_sharded(balance=True) on
      the flagship frame bit-identical to render_mxu;
      Renderer(backend="cuda-sharded") on the reference frame; the group is
      destroyed;
- 16. K4's, K2's, K3's and K1's launch counts over phase 15 must be > 0
+ 17. K4's, K2's, K3's and K1's launch counts over phase 16 must be > 0
      (K4's staged table); then render_sweep_record on the 15,000 seeded
      spheres (K4's global table: one launch, counted) against the twin;
- 17. the native IO library (csrc/brt_native.cpp) built with the host's C++
+ 18. the native IO library (csrc/brt_native.cpp) built with the host's C++
      compiler at first use; the run fails if it does not build here;
- 18. K2's cluster-culled traversal (cluster size 12, 41 clusters on
+ 19. K2's cluster-culled traversal (cluster size 12, 41 clusters on
      rtiow_final): at the gradient bench's shape, culled against the twin
      with the same plan (which sweeps the members with no bound test) for
      value only, winners, and winners + runner-up, and against the
@@ -104,23 +117,24 @@ exit — if any phase fails:
      0), timed interleaved (brute, culled, culled, brute); the same at the
      CLI's default frame (1200x800, 64 spp, depth 8) against brute force,
      and its 2-sample slice against the twin; clusters hit per primary ray;
- 19. the command line at full width, each command through `cli.main([...])`
+ 20. the command line at full width, each command through `cli.main([...])`
      with the counts set to 0 before: `render --scene rtiow --backend
      pallas` at the CLI's defaults and with `--cluster-size 0` (the two PNGs
      compared), `render --backend cuda`, `animate --frames 4 --backend
      cuda`, `serve` on a free port (GET /, two /frame.png with different
      cameras, POST /quit), `inverse --backend pallas --steps 6` with a
-     checkpoint (the ball ends nearer its true center than it started);
+     checkpoint (its closing `final` line's center and albedo errors below
+     those at the start);
      every PNG decoded and held against the image the Python API gives for
      the same arguments (at most one 8-bit step);
- 20. Renderer(backend="pallas") over three frames of the reference frame:
+ 21. Renderer(backend="pallas") over three frames of the reference frame:
      one plan, reused; the last frame against the brute-force launch;
- 21. K1's, K2's (with clusters and without) and K3's launch counts over
-     phases 19-20 must be > 0;
- 22. build: the probes (csrc/probes.cu: P1-P5; csrc/fp32_probe.cu: V1-V3),
+ 22. K1's, K2's (with clusters and without) and K3's launch counts over
+     phases 20-21 must be > 0;
+ 23. build: the probes (csrc/probes.cu: P1-P5; csrc/fp32_probe.cu: V1-V3),
      one nvcc each, started together, timed, with ptxas registers and
      spills;
- 23. `tools.proto_probes.main([])` (P1-P5 on the reference tool's inputs,
+ 24. `tools.proto_probes.main([])` (P1-P5 on the reference tool's inputs,
      two launches each, counted); then each of P1-P5 against its plain
      version on the card on those inputs and, for P4 and P5, on a second
      input with a forced tie in one column; P1 also on seeded lanes dying in
@@ -144,7 +158,7 @@ exit — if any phase fails:
      a third input, NaN at rows 0 and 9 of one column and in every row of
      another: bit for bit against the plain version, a NaN never winning
      against a number and the all-NaN column giving row 0;
- 24. `tools.fp32_probe.main([])`: V1, V2 (float32 and bfloat16) and V3 (prod,
+ 25. `tools.fp32_probe.main([])`: V1, V2 (float32 and bfloat16) and V3 (prod,
      nosqrt, nobranch, smem, k1) at the reference's shape (256 spheres, 1,024
      rays, 4,000 rounds) and at the card-filling shape (270,336 rays, 400
      rounds; V3 prod and k1 also on two scenes' tables with camera rays in
@@ -158,14 +172,14 @@ exit — if any phase fails:
      a difference of O(1) terms), V3's index equal on all but near-ties (at
      most 0.5% of columns), V2 float32 rtol 1e-4, bfloat16 rtol 5e-2 (bf16
      rounds after every operation and __hfma2 fuses);
- 25. `tools.grad_bench.main(["400", "300", "16", "8",
-     "kernel,torch,wavefront"])` and `[..., "kernel", "--forward", "sweep"]`
-     with their launch counts held to exact numbers; `graft_entry.entry()`
-     and its fn run once on the card, held against K1's image of the same
-     frame under parity.COMPILED; `graft_entry.dryrun_multichip(1)`: one
-     rank on the card in an nccl group, a finite training step and a finite
-     fast-gradient step;
- 26. the port's bench, the sharding record and the frame loops:
+ 26. `tools.grad_bench.main(["400", "300", "16", "8", "kernel"])`, its
+     `torch,wavefront` paths at 1 spp and `[..., "kernel", "--forward",
+     "sweep"]`, with their launch counts held to exact numbers;
+     `graft_entry.entry()` and its fn run once on the card, held against
+     K1's image of the same frame under parity.COMPILED;
+     `graft_entry.dryrun_multichip(1)`: one rank on the card in an nccl
+     group, a finite training step and a finite fast-gradient step;
+ 27. the port's bench, the sharding record and the frame loops:
      `bench_torch.main(["--quick", "--repeats", "1"])` in this process with
      its stdout captured and K1-K4's counts set to 0 before it and read
      after it, held to exact numbers (K1 11: the gate and its session, the
@@ -399,8 +413,110 @@ def sha256(*tensors):
     return h.hexdigest()[:16]
 
 
+def recovery_phase(dev, smi, cli_problem):
+    """Phase 11: the inverse-rendering path recovers the ball, (a) on the
+    reference test's problem through the wavefront, K2 and K4, (b) on the
+    `cli inverse` problem through K2 (`cli_problem`, phase 10's
+    `cli_inverse_problem(dev)`) and K4.  Returns (the launches of K2, K3
+    and K4 over both parts, the numbers each run reached)."""
+    import numpy as np
+    import torch
+
+    from bevy_raytrace_tpu_torch.inverse import optimize
+    from bevy_raytrace_tpu_torch.kernels import record as k2
+    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
+    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
+    from bevy_raytrace_tpu_torch.profile_grad import (
+        RECOVERY_BARS,
+        _profile,
+        ball_errors,
+        ball_inverse_problem,
+        cli_inverse_problem,
+    )
+
+    wrappers = {"k2": k2.record_frame, "k3": k3.replay_grad,
+                "k4": k4.sweep_record_frame}
+    total = dict.fromkeys(wrappers, 0)
+
+    def run(label, make_problem, forward, steps, lr, tail):
+        """`steps` Adam steps through `forward` on the problem
+        `make_problem()` gives, counted and timed; the bars checked with
+        the mean of the last `tail` losses."""
+        t0 = time.perf_counter()
+        scene_bad, scene_true, problem = make_problem()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        result = optimize(scene_bad, problem, steps=steps, learning_rate=lr)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: w.launches for k, w in wrappers.items()}
+        renders = 2 * steps
+        want = {"k2": renders if forward == "pallas" else 0,
+                "k3": 0 if forward == "wavefront" else renders,
+                "k4": renders if forward == "sweep" else 0}
+        for k, v in got.items():
+            total[k] += v
+        losses = result.losses
+        last = float(np.mean(losses[-tail:]))
+        err0, alb0 = ball_errors(scene_bad, scene_true)
+        err1, alb1 = ball_errors(result.scene, scene_true)
+        cfg = problem.config
+        out = {"first_loss": losses[0], "last_loss": losses[-1],
+               f"last{tail}_mean": last, "center_error": [err0, err1],
+               "albedo_error": [alb0, alb1], "s_per_step": secs / steps,
+               "paths_per_s": renders * cfg.rays_per_frame / secs,
+               "setup_s": setup_s, "launches": got}
+        log(f"[recovery] {label}, {forward}: {cfg.width}x{cfg.height}x"
+            f"{cfg.samples_per_pixel} depth {cfg.max_depth}, {steps} steps "
+            f"at lr {lr}: loss {losses[0]:.6f} -> {losses[-1]:.6f} (mean of "
+            f"the last {tail} {last:.6f}, {last / losses[0]:.4f}x); center "
+            f"error {err0:.5f} -> {err1:.5f} ({err1 / err0:.4f}x); albedo "
+            f"error {alb0:.4f} -> {alb1:.4f}; {secs / steps * 1e3:.2f} "
+            f"ms/step, {out['paths_per_s'] / 1e6:.1f}M paths/s (2 renders "
+            f"a step); set-up {setup_s:.2f} s; launches {got} on {smi}")
+        check(all(np.isfinite(losses)) and len(losses) == steps,
+              f"recovery {label} {forward}: losses {losses}")
+        check(got == want, f"recovery {label} {forward}: launches {got}, "
+              f"expected {want}")
+        check(last < RECOVERY_BARS["loss"] * losses[0]
+              and err1 < RECOVERY_BARS["center"] * err0
+              and alb1 < RECOVERY_BARS["albedo"],
+              f"recovery {label} {forward} missed the reference's bars "
+              f"{RECOVERY_BARS}: {out}")
+        return out, scene_bad, problem
+
+    # (a) the reference test's problem.
+    small = {fw: run("the reference test's problem",
+                     lambda: ball_inverse_problem(dev, forward=fw), fw, 80,
+                     1e-2, 1)[0]
+             for fw in ("wavefront", "pallas", "sweep")}
+
+    # (b) the `cli inverse` problem at its defaults (K2's is phase 10's),
+    # with one more step of each recorder profiled after the counted run.
+    full = {}
+    for fw, make in (("pallas", lambda: cli_problem),
+                     ("sweep", lambda: cli_inverse_problem(dev,
+                                                           forward="sweep"))):
+        full[fw], scene_bad, problem = run(
+            "the cli inverse problem", make, fw, 120, 1.5e-2, 10)
+        full[fw]["profile"] = _profile(
+            f"recovery_{fw}", lambda: optimize(scene_bad, problem, steps=1,
+                                               learning_rate=1.5e-2), None)
+    m2, m4 = full["pallas"]["last10_mean"], full["sweep"]["last10_mean"]
+    log(f"[recovery] the cli inverse problem, last-10 mean loss: K2 "
+        f"{m2:.6f}, K4 {m4:.6f} ({m4 / m2 - 1:+.2%}); s/step K2 "
+        f"{full['pallas']['s_per_step']:.4f}, K4 "
+        f"{full['sweep']['s_per_step']:.4f}")
+    check(abs(m4 - m2) <= 0.1 * m2,
+          f"K4's last-10 mean loss {m4} is not within 10% of K2's {m2}")
+    return total, {"reference_problem": small, "cli_problem": full}
+
+
 def gradient_phases(dev, smi):
-    """Phases 7-12: K2 and K3, and the inverse-rendering path through them.
+    """Phases 7-13: K2 and K3, and the inverse-rendering path through them.
     Returns (K2's and K3's launch counts over the path, extra stats, and
     what the sharded phases reuse, the kernels' checks among it)."""
     import dataclasses
@@ -669,7 +785,18 @@ def gradient_phases(dev, smi):
           f"resuming the step-3 checkpoint twice disagrees: {rest.losses} "
           f"vs {again.losses}")
 
-    # ---- 11. the flagship gradient ----------------------------------------
+    # ---- 11. recovery through both recorders ------------------------------
+    counts = (k2.record_frame.launches, k3.replay_grad.launches,
+              k3.replay_grad.launches_global)
+    t0 = time.perf_counter()
+    rec_launches, rec_stats = recovery_phase(
+        dev, smi, (scene_bad, scene_true, problem))
+    rec_stats["phase_s"] = time.perf_counter() - t0
+    log(f"[time] phase 11 in {rec_stats['phase_s']:.1f} s")
+    (k2.record_frame.launches, k3.replay_grad.launches,
+     k3.replay_grad.launches_global) = counts
+
+    # ---- 12. the flagship gradient ----------------------------------------
     big = RenderConfig(width=1200, height=800, samples_per_pixel=256,
                        max_depth=8)
     cam_big = scenes.rtiow_final_camera(big.aspect)
@@ -700,13 +827,13 @@ def gradient_phases(dev, smi):
     log(f"[flagship grad] chunked vs unchunked {fl_vs}")
     check(fl_vs["ok"], "chunked flagship gradient disagrees with the unchunked")
 
-    # ---- 12. launches -----------------------------------------------------
+    # ---- 13. launches -----------------------------------------------------
     k2_launches = k2.record_frame.launches
     k3_launches = k3.replay_grad.launches
     k3_modes = {"shared": k3_launches - k3.replay_grad.launches_global,
                 "global": k3.replay_grad.launches_global}
     log(f"[launches] k2_record launches={k2_launches}, k3_replay_grad "
-        f"launches={k3_launches} ({k3_modes}) over phases 10-11")
+        f"launches={k3_launches} ({k3_modes}) over phases 10 and 12")
     check(k2_launches > 0 and k3_modes["shared"] > 0,
           "K2 or K3 (shared table) was not launched by the inverse-rendering "
           "path")
@@ -736,8 +863,10 @@ def gradient_phases(dev, smi):
           and big_vs["ok"],
           f"the large-scene gradient: launches {big_launches}, {big_vs}")
 
-    launches = {"k2": k2_launches, "k3": k3_launches, "k3_modes": k3_modes}
+    launches = {"k2": k2_launches, "k3": k3_launches, "k3_modes": k3_modes,
+                "recovery": rec_launches}
     stats = {"grad_build_s": build_s, "inverse_losses": losses,
+             "recovery": rec_stats,
              "inverse_s_per_step": step_s, "inverse_paths_per_s": inv_pps,
              "flagship_grad_s": {k: v[1] for k, v in flag.items()},
              "flagship_grad_paths_per_s": {k: v[2] for k, v in flag.items()}}
@@ -755,7 +884,7 @@ def gradient_phases(dev, smi):
 
 
 def sharded_phases(dev, smi, shared, ref):
-    """Phases 13-16: K4, the stripe modes, and the sharded gradient path.
+    """Phases 14-17: K4, the stripe modes, and the sharded gradient path.
     `shared` comes from `gradient_phases`, `ref` holds the reference frame's
     scene, camera and config.  Returns (launch counts over the sharded path,
     extra stats); K4's checks join `shared["checks"]`."""
@@ -792,7 +921,7 @@ def sharded_phases(dev, smi, shared, ref):
     checks = shared["checks"]
     checks["k4"] = []
 
-    # ---- 13. K4 against its twin ------------------------------------------
+    # ---- 14. K4 against its twin ------------------------------------------
     def k4_check(label, table, cam16, cfg, rounds, sample_base=0,
                  record_second=False):
         """K4 vs its twin on one input: image under COMPILED, at most 2% of
@@ -880,7 +1009,7 @@ def sharded_phases(dev, smi, shared, ref):
                     f"shared table's")
         del glob, staged
 
-    # ---- 14. stripe modes against the full launches -----------------------
+    # ---- 15. stripe modes against the full launches -----------------------
     n = cfg.num_pixels
     local = n // 4
     g = torch.from_numpy(np.random.default_rng(0).standard_normal(
@@ -914,9 +1043,9 @@ def sharded_phases(dev, smi, shared, ref):
               f"cotangent")
         del img, res, res2
 
-    # ---- 15. the sharded gradient path at full width ----------------------
+    # ---- 16. the sharded gradient path at full width ----------------------
     # What the sharded gradients are held against: the unsharded gradient
-    # through the SAME recorder.  K2's is phase 11's; K4's is taken here,
+    # through the SAME recorder.  K2's is phase 12's; K4's is taken here,
     # before the path's counts are zeroed.  K2 and K4 round differently, so
     # they record different paths on ~0.1% of entries, the near-tangent and
     # near-tie ones, whose gradients are the estimate's heavy tail: the two
@@ -1028,7 +1157,7 @@ def sharded_phases(dev, smi, shared, ref):
         + ", ".join(f"{m:.2f} ms" for m in frame_ms))
     del flag_img
 
-    # ---- 16. launches -----------------------------------------------------
+    # ---- 17. launches -----------------------------------------------------
     log(f"[launches] over the sharded path: {launches}; K4 by table mode "
         f"{k4_modes}")
     check(all(v > 0 for v in launches.values()) and k4_modes["shared"] > 0,
@@ -1105,7 +1234,7 @@ def png_pixels(data):
 
 
 def cli_phases(dev, smi, shared, ref):
-    """Phases 17-21: the native IO build, K2's cluster-culled traversal, the
+    """Phases 18-22: the native IO build, K2's cluster-culled traversal, the
     four CLI commands at full width, and Renderer(backend="pallas").
     Returns (launch counts over the CLI path, extra stats); the culled
     checks join `shared["checks"]["k2"]`."""
@@ -1135,7 +1264,7 @@ def cli_phases(dev, smi, shared, ref):
     from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render
 
-    # ---- 17. the native IO library ----------------------------------------
+    # ---- 18. the native IO library ----------------------------------------
     t0 = time.perf_counter()
     lib = native.load()
     io_build_s = time.perf_counter() - t0
@@ -1145,7 +1274,7 @@ def cli_phases(dev, smi, shared, ref):
     check(lib is not None,
           f"the native IO library did not build here: {native.BUILD_ERROR}")
 
-    # ---- 18. K2 culled: vs twin, vs brute force ---------------------------
+    # ---- 19. K2 culled: vs twin, vs brute force ---------------------------
     scene, cam = shared["scene"], shared["cam"]
     table, cam16 = shared["table"], shared["cam16"]
     cfg, cfg0, bench = shared["cfg"], shared["cfg0"], shared["bench"]
@@ -1230,7 +1359,7 @@ def cli_phases(dev, smi, shared, ref):
     log(f"[k2 culled] clusters hit per primary ray (of {plan.n_clusters}): "
         f"{culled_stats['clusters_hit_per_primary_ray']}")
 
-    # ---- 19. the command line at full width -------------------------------
+    # ---- 20. the command line at full width -------------------------------
     # Every leg of the path is counted on its own: the counts are set to 0
     # just before it and read just after, and must be exactly the leg's
     # own.  The images the legs are held against are rendered between the
@@ -1424,16 +1553,20 @@ def cli_phases(dev, smi, shared, ref):
                              "--checkpoint", ck, "--checkpoint-every", "3",
                              "-o", pi], k2=12, k3=12)
         with np.load(ck) as z:
-            step, center = int(z["step"]), z["param.centers"][1]
-        true = scenes.baseline_config1_scene()[0].centers[1].cpu().numpy()
-        start = float(np.linalg.norm(np.float32([0.25, -0.1, 0.1])))
-        dist = float(np.linalg.norm(center - true))
+            step = int(z["step"])
+        # The command's closing line: its last loss and the ball's errors.
+        (final,) = [line for line in err.splitlines()
+                    if line.startswith("final ")]
+        got = {k: float(v) for k, v in (kv.split("=")
+                                        for kv in final.split()[1:])}
         cli_stats["inverse_pallas"] = {
             "wall_s": wall, "s_per_step": timed(err, r"in (\d+\.\d+)s") / 6,
-            "center_error": [start, dist]}
-        log(f"[cli] inverse: checkpoint at step {step}; the ball's center "
-            f"error {start:.4f} -> {dist:.4f}")
-        check(step == 6 and dist < start, "cli inverse did not improve")
+            **got}
+        log(f"[cli] inverse: checkpoint at step {step}; {final}")
+        check(step == 6 and np.isfinite(got["loss"])
+              and got["center_error"] < got["center_error_start"]
+              and got["albedo_error"] < got["albedo_error_start"],
+              f"cli inverse did not improve: {final}")
         inv_cfg = RenderConfig(width=1200, height=800, samples_per_pixel=64,
                                max_depth=8, spp_chunk=4)
         with torch.no_grad():
@@ -1446,7 +1579,7 @@ def cli_phases(dev, smi, shared, ref):
             f"pixels within one 8-bit step")
         check(close >= 0.98, "cli inverse's image differs from the API's")
 
-    # ---- 20. Renderer(backend="pallas") -----------------------------------
+    # ---- 21. Renderer(backend="pallas") -----------------------------------
     ref_scene, ref_cam, ref_cfg = ref
     r = Renderer(ref_cfg, backend="pallas")
     frame_ms, plans = [], []
@@ -1486,10 +1619,10 @@ def cli_phases(dev, smi, shared, ref):
         ref_sl, k1_rounds(ref_scene, ref_cam, ref_sl, 1),
         with_residuals=False, clusters=plans[0])
 
-    # ---- 21. launches -----------------------------------------------------
+    # ---- 22. launches -----------------------------------------------------
     # The sums of the legs' counts, each of which was held to its exact
     # number above.
-    log(f"[launches] over the CLI path (phases 19-20): {launches}")
+    log(f"[launches] over the CLI path (phases 20-21): {launches}")
     check(launches["k1"] > 0 and launches["k3"] > 0
           and launches["k2_clustered"] > 0
           and launches["k2"] > launches["k2_clustered"],
@@ -1503,7 +1636,7 @@ def cli_phases(dev, smi, shared, ref):
 
 
 def tool_phases(dev, smi):
-    """Phases 22-25: the probe kernels P1-P5 and V1-V3 behind their tools,
+    """Phases 23-26: the probe kernels P1-P5 and V1-V3 behind their tools,
     the gradient bench tool and the graft entry points.  Returns (the
     probes' entries of the {"kernels": [...]} line, K1-K4's launch counts
     over the tool path, extra stats)."""
@@ -1522,7 +1655,7 @@ def tool_phases(dev, smi):
     from bevy_raytrace_tpu_torch.tools import fp32_probe as fp32_tool
     from bevy_raytrace_tpu_torch.tools import grad_bench, proto_probes
 
-    # ---- 22. build the probes ---------------------------------------------
+    # ---- 23. build the probes ---------------------------------------------
     names = ["probes", "fp32_probe"]
     t0 = time.perf_counter()
     build.load_all(names)
@@ -1561,7 +1694,7 @@ def tool_phases(dev, smi):
     def as_tuple(v):
         return v if isinstance(v, tuple) else (v,)
 
-    # ---- 23. P1-P5 ----------------------------------------------------------
+    # ---- 24. P1-P5 ----------------------------------------------------------
     rc = counted("tools.proto_probes", lambda: proto_probes.main([]),
                  p1=2, p2=2, p3=2, p4=2, p5=2)
     check(rc == 0, f"tools.proto_probes exited {rc}")
@@ -1729,7 +1862,7 @@ def tool_phases(dev, smi):
     check(torch.equal(out[:, 7], attr[:, 3] + attr[:, 300]),
           "P5: the tied rows did not sum")
 
-    # ---- 24. V1-V3 ----------------------------------------------------------
+    # ---- 25. V1-V3 ----------------------------------------------------------
     rc = counted("tools.fp32_probe", lambda: fp32_tool.main([]),
                  v1=12, v2=16, v3=108)
     check(rc == 0, f"tools.fp32_probe exited {rc}")
@@ -1855,15 +1988,20 @@ def tool_phases(dev, smi):
     del gc, rc_
     torch.cuda.empty_cache()
 
-    # ---- 25. grad_bench, graft_entry ----------------------------------------
+    # ---- 26. grad_bench, graft_entry ----------------------------------------
     # A step is one recording forward and one replay: four steps a path.  The
-    # torch path's backward and the wavefront launch no kernel.
+    # torch path's backward and the wavefront launch no kernel; those two
+    # run at 1 spp (a step of each at 16 spp is 3-5 s, host-bound).
     size = ["400", "300", "16", "8"]
-    rc = counted("tools.grad_bench kernel,torch,wavefront",
-                 lambda: grad_bench.main([*size, "kernel,torch,wavefront"]),
-                 k2=8, k3=4)
-    check(rc == 0, f"tools.grad_bench exited {rc}")
+    rc = counted("tools.grad_bench kernel",
+                 lambda: grad_bench.main([*size, "kernel"]), k2=4, k3=4)
+    check(rc == 0, f"tools.grad_bench kernel exited {rc}")
     steps = list(grad_bench.STEPS)
+    rc = counted("tools.grad_bench torch,wavefront at 1 spp",
+                 lambda: grad_bench.main(["400", "300", "1", "8",
+                                          "torch,wavefront"]), k2=4)
+    check(rc == 0, f"tools.grad_bench torch,wavefront exited {rc}")
+    steps += grad_bench.STEPS
     rc = counted("tools.grad_bench kernel --forward sweep",
                  lambda: grad_bench.main([*size, "kernel", "--forward",
                                           "sweep"]), k4=4, k3=4)
@@ -1923,7 +2061,7 @@ def tool_phases(dev, smi):
         # sits on the host's launch floor.
         entry["device_ms"] = checks[key][0]["device_ms"]
         entry["library_device_ms"] = library_device.get(key)
-    log(f"[launches] over the tool path (phases 23-25): {launches}")
+    log(f"[launches] over the tool path (phases 24-26): {launches}")
     return entries, launches, {
         "probe_build_s": build_s, "tool_leg_launches": legs,
         "probe_sha256": {"p1": p1_digests, "p2": p2_digests,
@@ -1935,7 +2073,7 @@ def tool_phases(dev, smi):
 
 
 def bench_phases(dev, smi):
-    """Phase 26: the port's bench, the sharding record and the frame loops,
+    """Phase 27: the port's bench, the sharding record and the frame loops,
     each through its entry point in this process.  Returns (K1-K4's launch
     counts over the bench, extra stats)."""
     import contextlib
@@ -1966,7 +2104,7 @@ def bench_phases(dev, smi):
     def rate(v):
         return isinstance(v, float) and math.isfinite(v) and v > 0.0
 
-    # ---- 26. bench_torch, tools.scaling, tools.ref_probe --------------------
+    # ---- 27. bench_torch, tools.scaling, tools.ref_probe --------------------
     wrappers = {"k1": k1.render_lanes, "k2": k2.record_frame,
                 "k3": k3.replay_grad, "k4": k4.sweep_record_frame}
     for wrapper in wrappers.values():
@@ -2064,6 +2202,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 1. environment -------------------------------------------------
+    t_start = time.perf_counter()
     smi = smi_line()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
@@ -2245,13 +2384,28 @@ def main() -> int:
         **forward_bound("k1", ref_scene.count, ref_cfg.num_pixels,
                         ref_cfg.samples_per_pixel, ref_cfg.max_depth,
                         ref_rounds)}
-    grad_launches, grad_stats, shared = gradient_phases(dev, smi)
-    shard_launches, shard_stats = sharded_phases(
-        dev, smi, shared, (ref_scene, ref_cam, ref_cfg))
-    cli_launches, cli_stats = cli_phases(dev, smi, shared,
-                                         (ref_scene, ref_cam, ref_cfg))
-    tool_entries, tool_launches, tool_stats = tool_phases(dev, smi)
-    bench_launches, bench_stats = bench_phases(dev, smi)
+    phase_s = {"1-6": time.perf_counter() - t_start}
+
+    def timed(phases, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[phases] = time.perf_counter() - t0
+        log(f"[time] phases {phases} in {phase_s[phases]:.1f} s")
+        return out
+
+    grad_launches, grad_stats, shared = timed("7-13", gradient_phases, dev,
+                                              smi)
+    ref = (ref_scene, ref_cam, ref_cfg)
+    shard_launches, shard_stats = timed("14-17", sharded_phases, dev, smi,
+                                        shared, ref)
+    cli_launches, cli_stats = timed("18-22", cli_phases, dev, smi, shared,
+                                    ref)
+    tool_entries, tool_launches, tool_stats = timed("23-26", tool_phases,
+                                                    dev, smi)
+    bench_launches, bench_stats = timed("27", bench_phases, dev, smi)
+    phase_s["total"] = time.perf_counter() - t_start
+    log(f"[time] phases 1-6 in {phase_s['1-6']:.1f} s; the run in "
+        f"{phase_s['total']:.1f} s")
     checks = shared["checks"]
     csrc = "bevy_raytrace_tpu_torch/csrc/"
     entries = [
@@ -2269,13 +2423,15 @@ def main() -> int:
                      shard_launches["k4"], checks["k4"]),
     ]
     for entry, key in zip(entries, ("k1", "k2", "k3", "k4")):
+        if key in grad_launches["recovery"]:
+            entry["launches_recovery_path"] = grad_launches["recovery"][key]
         entry["launches_sharded_path"] = shard_launches[key]
         entry["launches_cli_path"] = cli_launches[key]
         entry["launches_tool_path"] = tool_launches[key]
         entry["launches_bench_path"] = bench_launches[key]
     entries[1]["launches_cli_path_clustered"] = cli_launches["k2_clustered"]
     # K1's and K4's table modes: the staged table on their main paths
-    # (phases 4-5, 15), the global one on the 15,000-sphere scene through
+    # (phases 4-5, 16), the global one on the 15,000-sphere scene through
     # the same entry points (render_mxu, render_sweep_record).
     entries[0]["launches_by_mode"] = k1_modes
     entries[3]["launches_by_mode"] = shard_launches["k4_modes"]
@@ -2284,7 +2440,7 @@ def main() -> int:
         check(all(v > 0 for v in entry["launches_by_mode"].values()),
               f"a {entry['name']} table mode was launched on no path: "
               f"{entry['launches_by_mode']}")
-    # K3's table modes: the shared table over phases 10-11, the global one
+    # K3's table modes: the shared table over phases 10 and 12, the global one
     # on the large-scene gradient (both paths through make_fast_renderer).
     entries[2]["launches_by_mode"] = grad_launches["k3_modes"]
     check(all(v > 0 for v in grad_launches["k3_modes"].values()),
@@ -2297,7 +2453,8 @@ def main() -> int:
               f"{entry['name']}: not launched on its path, or faster than "
               f"its bound (the count of its work is wrong): {entry}")
     log(json.dumps({"kernels": entries}))
-    log(json.dumps({"build_s": build_s, "verify_ms": verify_times,
+    log(json.dumps({"phase_s": phase_s, "build_s": build_s,
+                    "verify_ms": verify_times,
                     "reference_frame_ms": frame_ms,
                     "flagship_s": flag_s, "flagship_rays_per_s": flag_rps,
                     **grad_stats, **shard_stats, **cli_stats,

@@ -119,8 +119,17 @@ def test_inverse_improves_and_checkpoints(tmp_path, capsys):
     assert os.path.exists(ckpt)
     assert "recovered center" in cap.err
     losses = [float(line.split("loss")[1])
-              for line in cap.err.splitlines() if "loss" in line]
+              for line in cap.err.splitlines() if line.startswith("step ")]
     assert losses, "no loss lines logged"
+    # The closing line: the last loss and the ball's errors, end and start.
+    (final,) = [line for line in cap.err.splitlines()
+                if line.startswith("final ")]
+    got = {k: float(v) for k, v in (kv.split("=") for kv in final.split()[1:])}
+    assert set(got) == {"loss", "center_error", "albedo_error",
+                        "center_error_start", "albedo_error_start"}
+    assert all(np.isfinite(v) for v in got.values()), got
+    np.testing.assert_allclose(got["center_error_start"],
+                               np.linalg.norm([0.25, -0.1, 0.1]), rtol=1e-5)
     # The checkpoint is what a second run resumes from: steps 3-5 only.
     with np.load(ckpt) as z:
         assert int(z["step"]) == 3
