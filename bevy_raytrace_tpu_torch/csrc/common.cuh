@@ -220,6 +220,26 @@ __device__ __forceinline__ void sweep_nearest(
   }
 }
 
+// The root sweep_nearest takes for row g = (cx, cy, cz, r^2), in its
+// expressions (so with its rounding and its fma contraction): the near root
+// when > t_min, else the far one; NaN where disc <= 0, where the sweep finds
+// no hit, so `t > t_min` fails as the sweep's test does.  K1's culled loop
+// sweeps its members with it and takes its per-lane bound t_ub from it: a
+// bound from the sweep's own t can never land below the winner's.
+__device__ __forceinline__ float sweep_root(const float4 g, const float (&o)[3],
+                                            const float (&d)[3], float t_min) {
+  const float ocx = o[0] - g.x, ocy = o[1] - g.y, ocz = o[2] - g.z;
+  const float hb = ocx * d[0] + ocy * d[1] + ocz * d[2];
+  const float cq = (ocx * ocx + ocy * ocy + ocz * ocz) - g.w;
+  const float disc = hb * hb - cq;
+  if (disc > 0.f) {
+    const float sq = disc * rsqrtf(disc);
+    const float rn = -hb - sq;
+    return rn > t_min ? rn : sq - hb;
+  }
+  return __int_as_float(0x7fffffff);
+}
+
 // ---- host side: the staged sphere table of K1 and K4 ---------------------
 
 // The most bytes of dynamic shared memory a block of `kernel` may take: the

@@ -1,4 +1,4 @@
-"""Sphere clustering for K2's culled traversal.
+"""Sphere clustering for the culled traversals of K2 and K1.
 
 Mirror of `bevy_raytrace_tpu/kernels/clusters.py`.
 
@@ -11,14 +11,23 @@ Mirror of `bevy_raytrace_tpu/kernels/clusters.py`.
       device), so inverse-rendering updates and moved spheres stay correct
       without a new plan.
 
-  kernel (`csrc/k2_record.cu`, per ray, per bounce):
+  kernels (`csrc/k2_record.cu`, `csrc/k1_render.cu`, per ray, per bounce):
       the ray is tested against each cluster's bounding sphere; the
-      per-sphere loop then visits only the members of the clusters it hits.
+      per-sphere loop then visits only the members of the clusters it hits
+      (K1: only those whose bound starts before the nearest hit of the
+      priority spheres and of the lane's previous winner).
+
+Bounds come in two encodings, one for each kernel's quadratic:
+`cluster_bounds` gives K2's (bx, by, bz, |b|^2 - br^2), `sphere_bounds`
+K1's (bx, by, bz, br^2) with br^2 squared directly, not recovered from
+|b|^2 - kq as the reference's K1 operands are (that difference cancels
+badly for a small bound far from the origin).  `priority_rows` gives the
+live (cx, cy, cz, r^2) of the plan's priority spheres.
 
 The plan's arrays equal the reference's exactly (same numpy arithmetic);
 `interop.cluster_plan_from_reference` carries one across.  Pad slots of the
 last cluster repeat the last real sphere, as the reference's do; the Hopper
-kernel does not visit them.
+kernels do not visit them.
 """
 
 from __future__ import annotations
@@ -124,12 +133,10 @@ def check_plan(plan, n_spheres=None) -> None:
             f"scene has {n_spheres}")
 
 
-def cluster_bounds(centers, radii, plan: ClusterPlan):
-    """Per-cluster bounding spheres from live geometry, on its device.
-
-    centers [S, 3], radii [S] tensors.  Returns (bcx, bcy, bcz, kq), each
-    [C], where kq = |bc|^2 - br^2 is the expanded-quadratic constant of the
-    kernel's bound test."""
+def _bounding_spheres(centers, radii, plan: ClusterPlan):
+    """(bc [C, 3], br [C]): each cluster's bounding sphere from live
+    geometry, its radius widened by 1.0001 and 1e-4 so that a bound test's
+    rounding cannot cull a member the ray hits."""
     L, C = plan.cluster_size, plan.n_clusters
     perm, m = plan.on(centers.device)  # [C*L], [C, L]
     c = centers[perm].reshape(C, L, 3)
@@ -138,5 +145,32 @@ def cluster_bounds(centers, radii, plan: ClusterPlan):
     bc = (c * m[:, :, None]).sum(dim=1) / count  # [C, 3]
     d = torch.sqrt(((c - bc[:, None, :]) ** 2).sum(dim=-1)) + r  # [C, L]
     br = torch.where(m > 0, d, -torch.inf).max(dim=1).values * 1.0001 + 1e-4
+    return bc, br
+
+
+def cluster_bounds(centers, radii, plan: ClusterPlan):
+    """Per-cluster bounding spheres from live geometry, on its device.
+
+    centers [S, 3], radii [S] tensors.  Returns (bcx, bcy, bcz, kq), each
+    [C], where kq = |bc|^2 - br^2 is the expanded-quadratic constant of the
+    kernel's bound test."""
+    bc, br = _bounding_spheres(centers, radii, plan)
     kq = (bc * bc).sum(dim=-1) - br * br
     return bc[:, 0], bc[:, 1], bc[:, 2], kq
+
+
+def sphere_bounds(centers, radii, plan: ClusterPlan):
+    """K1's chunk bounds: float32 [C, 4] rows (bx, by, bz, br^2) of the
+    same bounding spheres as `cluster_bounds`, for the centered quadratic of
+    K1's bound test."""
+    bc, br = _bounding_spheres(centers, radii, plan)
+    return torch.cat([bc, (br * br)[:, None]], dim=1).contiguous()
+
+
+def priority_rows(centers, radii, plan: ClusterPlan):
+    """float32 [K, 4] rows (cx, cy, cz, r^2) of the plan's priority spheres
+    (`plan.prio`, the K of largest |r|), read from live geometry: r^2 is
+    r * r, the same float as the sphere's own row in K1's table."""
+    pk = torch.from_numpy(plan.prio).to(centers.device, torch.int64)
+    r = radii[pk]
+    return torch.cat([centers[pk], (r * r)[:, None]], dim=1).contiguous()

@@ -45,7 +45,16 @@ FORWARD_ROW_BYTES = 16
 # faster at 6, 1.8-4.3% slower at 5.  So K1 stages up to 32,256 bytes (2,016
 # rows) and K4 up to 37,888 (2,368), with 56 registers a thread.  The
 # libraries turn the count into bytes with the occupancy API.
-FORWARD_MIN_BLOCKS = {"k1_render": 7, "k4_sweep_record": 6}
+# K1's culled kernel (rows, chunk bounds and priority rows staged) keeps
+# K1's count: its own threshold is not timed yet.
+FORWARD_MIN_BLOCKS = {"k1_render": 7, "k1_render_culled": 7,
+                      "k4_sweep_record": 6}
+# Kernel -> (library, its limit query).
+_LIMIT_QUERIES = {
+    "k1_render": ("k1_render", "brt_k1_table_bytes_limit"),
+    "k1_render_culled": ("k1_render", "brt_k1_culled_table_bytes_limit"),
+    "k4_sweep_record": ("k4_sweep_record", "brt_k4_table_bytes_limit"),
+}
 
 
 def _rsqrt_guard(n2):
@@ -191,24 +200,25 @@ def check_table_mode(table_mode):
 
 @functools.lru_cache(maxsize=None)
 def _table_limit(name: str, index: int) -> int:
-    """`brt_<kernel>_table_bytes_limit` of library `name` on CUDA device
-    `index`, for its FORWARD_MIN_BLOCKS."""
-    kernel = name.split("_")[0]
+    """The table-limit query of kernel `name` (`_LIMIT_QUERIES`) on CUDA
+    device `index`, for its FORWARD_MIN_BLOCKS."""
+    library, query = _LIMIT_QUERIES[name]
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = getattr(build.load(name), f"brt_{kernel}_table_bytes_limit")(
+        err = getattr(build.load(library), query)(
             FORWARD_MIN_BLOCKS[name], ctypes.byref(out))
     if err != 0:
-        raise RuntimeError(f"{kernel}'s shared-memory query failed with "
+        raise RuntimeError(f"{name}'s shared-memory query failed with "
                            f"cudaError_t {err}")
     return out.value
 
 
 def forward_table_mode(name: str, device, n_rows: int, table_mode=None):
-    """The table mode a launch of library `name` ("k1_render",
-    "k4_sweep_record") on CUDA `device` takes: `table_mode` when given (the
-    checks on the card force one; the launcher refuses a shared table that
-    does not fit a block), else `forward_table_plan`'s."""
+    """The table mode a launch of kernel `name` ("k1_render",
+    "k1_render_culled", "k4_sweep_record") on CUDA `device` takes:
+    `table_mode` when given (the checks on the card force one; the launcher
+    refuses a shared table that does not fit a block), else
+    `forward_table_plan`'s for `n_rows` staged rows."""
     if check_table_mode(table_mode) is not None:
         return table_mode
     index = device.index

@@ -108,7 +108,7 @@ def sweep_record_frame_plain(table, cam16, config: RenderConfig,
     pids = torch.arange(base, base + n, dtype=torch.int64, device=dev)
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
-        fb[lo:hi], _ = _plain_chunk(
+        fb[lo:hi], _, _ = _plain_chunk(
             geom, attr, cam, pids[lo:hi], seed, sample_base, spp, depth,
             config.t_min, config.width, config.height, res[:, :, lo:hi],
             None if res2 is None else res2[:, :, lo:hi])

@@ -5,6 +5,7 @@
     python -m bevy_raytrace_tpu_torch.tools.grad_bench     # gradient step
     python -m bevy_raytrace_tpu_torch.tools.scaling        # sharding record
     python -m bevy_raytrace_tpu_torch.tools.ref_probe      # frame loops
+    python -m bevy_raytrace_tpu_torch.tools.livechunks     # K1's cull
 
 They run on the CUDA device and raise where there is none; `--device cpu`
 runs the plain PyTorch versions on the CPU.  Nothing is built at import

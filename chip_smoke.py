@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths from a checkout of this repository — the
-forward render of a frame through the K1 CUDA kernel, inverse rendering
+forward render of a frame through the K1 CUDA kernel (dense and
+chunk-culled), inverse rendering
 through the K2 (recording forward) and K3 (replay gradient) CUDA kernels,
 the sharded gradient path (one process per device on torch.distributed)
 through K2/K4 (the dense-sweep recorder) and K3 in stripe mode, the
@@ -34,6 +35,18 @@ exit — if any phase fails:
      K1 on the flagship's identity lanes, timed, with its bound from the
      rounds it ran, and render_mxu on 15,000 seeded spheres (K1's global
      table: one launch, counted) against the twin;
+ 6b. K1's chunk-culled traversal (cluster size 12): the flagship through
+     render_mxu_balanced(plan=cluster_scene(scene, 12)) twice, its counts
+     set to 0 before and read after (4 culled launches on the staged
+     table), bit for bit phase 5's dense frame, both timed; one 16,384-pixel
+     stripe of it against the culled twin under parity.COMPILED, and the
+     culled kernel on those lanes against the twin (the kernels line's
+     culled check, its bound counted from the live chunks it reported);
+     culled against dense K1 on the flagship's identity lanes, timed, with
+     the live chunks a round and the culled bound; the reference frame
+     (bit for bit phase 4a's dense launch) and 15,000 seeded spheres at
+     320x240x2, depth 3 (device-memory tables), culled against dense, bit
+     for bit, timed; `tools.livechunks` at cluster sizes 12 and 64;
   7. build: K2 (k2_record), K3 (k3_replay_grad) and K4 (k4_sweep_record),
      one nvcc each, started together, timed, with ptxas registers and spills
      of every instantiation;
@@ -202,8 +215,9 @@ input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s (the H100 SXM data sheet).  Operations are
 counted from the CUDA sources per ray-sphere test, per executed round and
 per path (the constants below), times what THIS run's data needs: executed
-rounds from K1's `len` output at the same shape, hit bounces from the
-recorded residuals; P1's rounds from its output; the probes' from their
+rounds from K1's `len` output at the same shape, the culled K1's chunk and
+member tests from its live-chunk count, hit bounces from the recorded
+residuals; P1's rounds from its output; the probes' from their
 shapes, bfloat16 against 133.8 TFLOP/s.  No single PyTorch call computes what
 K1-K4, P1 or V1-V3 compute, so their library_ms is null; P2-P5 each stand
 beside one (torch.matmul, a reshape and multiply, torch.min, an indexed
@@ -323,6 +337,22 @@ def forward_bound(kind, n_spheres, n_pix, spp, depth, rounds, res_streams=0):
     nbytes = (n_spheres * 48 + 64 + n_pix * 12
               + (n_pix * 8 if kind == "k1" else 0)
               + res_streams * 2 * spp * depth * n_pix)
+    return bound(flops, nbytes)
+
+
+def culled_bound(n_spheres, n_chunks, chunk, n_prio, n_pix, spp, rounds,
+                 live):
+    """Bound of K1's culled launch that executed `rounds` rounds and found
+    `live` chunks live over them (its live count): per round, the test of
+    every chunk's bound and of every priority row, shading, and the sweep
+    of the live chunks' members, counted as live x chunk less a short last
+    chunk once a round (so never more than were swept); against the rows,
+    bounds, priority rows and members in, pids in and fb and len out."""
+    members = max(live * chunk - rounds * (n_chunks * chunk - n_spheres), 0)
+    flops = ((rounds * (n_chunks + n_prio) + members) * SWEEP_FLOPS["k1"]
+             + rounds * ROUND_FLOPS + n_pix * spp * CAMERA_FLOPS)
+    nbytes = (n_spheres * 52 + (n_chunks + n_prio) * 16 + 64 + n_pix * 12
+              + n_pix * 8)
     return bound(flops, nbytes)
 
 
@@ -2179,6 +2209,174 @@ def bench_phases(dev, smi):
                       "ref_probe": probe, "ref_probe_s": probe_s}
 
 
+def culled_phase(dev, smi, flagship, reference, lane_args):
+    """Phase 6b: K1's chunk-culled traversal.  `flagship` = (scene, camera,
+    config, phase 5's dense balanced frame, its seconds, phase 6's dense
+    identity-lane ms), `reference` = (scene, camera, config, phase 4a's
+    dense fb and len on identity lanes), `lane_args` main's.  Returns (the
+    culled launches of the main path's leg, the record, the kernels-line
+    check)."""
+    import torch
+
+    from bevy_raytrace_tpu_torch import scenes
+    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
+    from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
+    from bevy_raytrace_tpu_torch.parity import COMPILED, compare
+    from bevy_raytrace_tpu_torch.profile_grad import random_scene
+    from bevy_raytrace_tpu_torch.tools import livechunks
+
+    flag_scene, flag_cam, flag_cfg, flag, flag_s, flag_ms = flagship
+    ref_scene, ref_cam, ref_cfg, ref_fb, ref_ln = reference
+    size = 12
+    out = {"cluster_size": size}
+
+    def counts():
+        return (k1.render_lanes.launches, k1.render_lanes.launches_global,
+                k1.render_lanes.launches_culled)
+
+    def culled_args(scene, cam, cfg, pids, plan):
+        geom, attr, cull = k1._scene_tables(scene, plan)
+        args = lane_args(scene, cam, cfg, pids)
+        return (geom, attr) + args[2:], cull
+
+    # The main path's leg: the flagship through render_mxu_balanced(plan=),
+    # twice, with the counts set to 0 just before and read just after.
+    flag_plan = cluster_scene(flag_scene, size)
+    k1.render_lanes.launches = k1.render_lanes.launches_global = 0
+    k1.render_lanes.launches_culled = 0
+    cull_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        frame = k1.render_mxu_balanced(flag_scene, flag_cam, flag_cfg,
+                                       plan=flag_plan)
+        torch.cuda.synchronize()
+        cull_s.append(time.perf_counter() - t0)
+    leg = counts()
+    log(f"[culled] flagship render_mxu_balanced(plan=cluster_scene(scene, "
+        f"{size})), {flag_plan.n_clusters} chunks: "
+        + ", ".join(f"{t:.3f} s" for t in cull_s) + " against dense "
+        + ", ".join(f"{t:.3f} s" for t in flag_s)
+        + f"; launches (K1, global, culled) {leg} on {smi}")
+    check(leg == (4, 0, 4), f"the culled flagship leg launched {leg}, not "
+          f"4 culled K1 (probe + rest, twice) on the staged table")
+    check(torch.equal(frame, flag), "the culled flagship frame is not the "
+          "dense frame bit for bit")
+    out["flagship_frame_s"] = cull_s
+    out["flagship_dense_frame_s"] = list(flag_s)
+
+    # One stripe of the culled frame against the culled twin, and the culled
+    # kernel on those lanes against the twin on the same inputs.
+    lo = 400 * flag_cfg.width
+    stripe = torch.arange(lo, lo + 16384, dtype=torch.int32, device=dev)
+    args, cull = culled_args(flag_scene, flag_cam, flag_cfg, stripe,
+                             flag_plan)
+    stripe_ms, (fb_k, _) = cuda_ms(lambda: k1.render_lanes(*args, cull=cull),
+                                   2)
+    plain_ms, (fb_t, ln_t) = cuda_ms(
+        lambda: k1.render_lanes_plain(*args, cull=cull), 1, warm=False)
+    spp = flag_cfg.samples_per_pixel
+    twin = (fb_t / spp).cpu().numpy()
+    frame_vs = compare(frame.reshape(-1, 3)[lo:lo + 16384].cpu().numpy(),
+                       twin, COMPILED)
+    kernel_vs = compare((fb_k / spp).cpu().numpy(), twin, COMPILED)
+    log(f"[culled] flagship stripe of 16384 pixels from row 400: frame vs "
+        f"twin {frame_vs}; kernel {stripe_ms:.3f} ms vs twin {plain_ms:.1f} "
+        f"ms {kernel_vs}")
+    check(frame_vs["ok"] and kernel_vs["ok"],
+          f"culled stripe vs twin: frame {frame_vs}, kernel {kernel_vs}")
+    _, ln_k, live_k = k1.render_lanes(*args, cull=cull, count_live=True)
+    s_rounds, s_live = float(ln_k.sum()), float(live_k.sum())
+    check_entry = {
+        "shape": "flagship stripe, 16384 pixels x256 depth 8, culled L=12",
+        "mode": k1.forward_table_mode(
+            "k1_render_culled", dev,
+            flag_scene.count + flag_plan.n_clusters + len(flag_plan.prio)),
+        "max_abs_err": kernel_vs["max_abs_err"], "ms": stripe_ms,
+        "plain_ms": plain_ms, "rounds": s_rounds, "live_chunks": s_live,
+        **culled_bound(flag_scene.count, flag_plan.n_clusters, size,
+                       len(flag_plan.prio), 16384, spp, s_rounds, s_live)}
+    check(0.0 < check_entry["bound_ms"] <= stripe_ms,
+          f"the culled check is faster than its bound: {check_entry}")
+    del fb_t, ln_t, fb_k
+
+    # The flagship's K1 on identity lanes, culled against dense (phase 6).
+    pids = torch.arange(k1.lane_pad(flag_cfg.num_pixels), dtype=torch.int32,
+                        device=dev)
+    args, cull = culled_args(flag_scene, flag_cam, flag_cfg, pids, flag_plan)
+    culled_ms, _ = cuda_ms(lambda: k1.render_lanes(*args, cull=cull), 2)
+    _, ln_c, live_c = k1.render_lanes(*args, cull=cull, count_live=True)
+    rounds, live = float(ln_c.sum()), float(live_c.sum())
+    out["flagship_identity"] = {
+        "ms": culled_ms, "dense_ms": flag_ms, "rounds": rounds,
+        "live_chunks_per_round": live / rounds,
+        "n_clusters": flag_plan.n_clusters,
+        **culled_bound(flag_scene.count, flag_plan.n_clusters, size,
+                       len(flag_plan.prio), flag_cfg.num_pixels, spp,
+                       rounds, live)}
+    b = out["flagship_identity"]["bound_ms"]
+    log(f"[culled] flagship K1 on identity lanes: culled {culled_ms:.3f} ms "
+        f"against dense {flag_ms:.3f} ms ({flag_ms / culled_ms:.3f}x); "
+        f"{live / rounds:.3f} of {flag_plan.n_clusters} chunks live a round; "
+        f"culled bound {b:.3f} ms ({b / culled_ms:.1%}) on {smi}")
+    check(0.0 < b <= culled_ms, f"culled flagship faster than its bound "
+          f"{out['flagship_identity']}")
+    del ln_c, live_c
+
+    # The reference frame and 15,000 seeded spheres: culled bit for bit the
+    # dense launch on the same lanes (phase 4a's for the reference frame).
+    ref_pids = torch.arange(k1.lane_pad(ref_cfg.num_pixels),
+                            dtype=torch.int32, device=dev)
+    ref_plan = cluster_scene(ref_scene, size)
+    args, cull = culled_args(ref_scene, ref_cam, ref_cfg, ref_pids, ref_plan)
+    ref_culled_ms, (fb_c, ln_c) = cuda_ms(
+        lambda: k1.render_lanes(*args, cull=cull), 2)
+    dense_args = lane_args(ref_scene, ref_cam, ref_cfg, ref_pids)
+    ref_dense_ms, _ = cuda_ms(lambda: k1.render_lanes(*dense_args), 2)
+    same = torch.equal(fb_c, ref_fb) and torch.equal(ln_c, ref_ln)
+    out["reference_frame"] = {"ms": ref_culled_ms, "dense_ms": ref_dense_ms,
+                              "n_clusters": ref_plan.n_clusters}
+    log(f"[culled] reference frame ({ref_scene.count} spheres, "
+        f"{ref_plan.n_clusters} chunks): culled {ref_culled_ms:.3f} ms, dense "
+        f"{ref_dense_ms:.3f} ms; bit for bit the dense launch: {same}")
+    check(same, "the culled reference frame is not the dense one bit for bit")
+    del fb_c, ln_c
+
+    huge_cfg = flag_cfg.replace(width=320, height=240, samples_per_pixel=2,
+                                max_depth=3)
+    huge = random_scene(15000, seed=1)
+    huge_cam = scenes.rtiow_final_camera(huge_cfg.aspect)
+    huge_pids = torch.arange(k1.lane_pad(huge_cfg.num_pixels),
+                             dtype=torch.int32, device=dev)
+    huge_plan = cluster_scene(huge, size)
+    args, cull = culled_args(huge, huge_cam, huge_cfg, huge_pids, huge_plan)
+    before = counts()
+    huge_ms, (fb_c, ln_c) = cuda_ms(lambda: k1.render_lanes(*args, cull=cull),
+                                    1)
+    global_launches = counts()[1] - before[1]
+    dense_args = lane_args(huge, huge_cam, huge_cfg, huge_pids)
+    huge_dense_ms, (fb_d, ln_d) = cuda_ms(lambda: k1.render_lanes(*dense_args),
+                                          1)
+    same = torch.equal(fb_c, fb_d) and torch.equal(ln_c, ln_d)
+    out["seeded_15000"] = {"ms": huge_ms, "dense_ms": huge_dense_ms,
+                           "n_clusters": huge_plan.n_clusters}
+    log(f"[culled] 15000 seeded spheres at 320x240x2 depth 3 "
+        f"({huge_plan.n_clusters} chunks, device-memory table: "
+        f"{global_launches} of 2 launches): culled {huge_ms:.3f} ms, dense "
+        f"{huge_dense_ms:.3f} ms; bit for bit the dense launch: {same}")
+    check(same and global_launches == 2,
+          f"15000 spheres: culled vs dense {same}, global launches "
+          f"{global_launches}")
+
+    # tools.livechunks at cluster sizes 12 and 64, 32 spp, every lane to
+    # its end (so the dense launch is timed beside the culled one).
+    out["livechunks"] = []
+    for cs in ("12", "64"):
+        check(livechunks.main([cs, "32", "0"]) == 0,
+              f"tools.livechunks {cs} failed")
+        out["livechunks"] += livechunks.RESULTS
+    return leg[2], out, check_entry
+
+
 def main() -> int:
     import torch
 
@@ -2271,11 +2469,11 @@ def main() -> int:
                             device=dev)
     args = lane_args(ref_scene, ref_cam, ref_cfg, ref_pids)
     ref_mode = k1.forward_table_mode("k1_render", dev, ref_scene.count)
-    ref_ms, (fb, ln) = cuda_ms(lambda: k1.render_lanes(*args), 5)
-    ref_rounds = float(ln[:ref_cfg.num_pixels].sum())
+    ref_ms, (ref_fb, ref_ln) = cuda_ms(lambda: k1.render_lanes(*args), 5)
+    ref_rounds = float(ref_ln[:ref_cfg.num_pixels].sum())
     plain_ms, (fb_plain, _) = cuda_ms(lambda: k1.render_lanes_plain(*args), 1,
                                       warm=False)
-    ref_vs_twin = compare(image(fb, ref_cfg), image(fb_plain, ref_cfg),
+    ref_vs_twin = compare(image(ref_fb, ref_cfg), image(fb_plain, ref_cfg),
                           COMPILED)
     log(f"[reference] kernel ({ref_mode} table) {ref_ms:.3f} ms, twin "
         f"{plain_ms:.1f} ms, {ref_scene.count} spheres; vs twin {ref_vs_twin}")
@@ -2377,6 +2575,13 @@ def main() -> int:
     check(huge_counts == (1, 1) and huge_vs["ok"],
           f"K1's global table: launches {huge_counts}, vs twin {huge_vs}")
 
+    # ---- 6b. K1's chunk-culled traversal (plan=) -------------------------
+    culled_launches, k1_culled, k1_culled_check = culled_phase(
+        dev, smi, (flag_scene, flag_cam, flag_cfg, flag, flag_s, flag_ms),
+        (ref_scene, ref_cam, ref_cfg, ref_fb, ref_ln), lane_args)
+    k1_modes["culled"] = culled_launches
+    del ref_fb, ref_ln, flag
+
     k1_check = {
         "shape": "reference frame 1920x1080x64 depth 3", "mode": ref_mode,
         "max_abs_err": ref_vs_twin["max_abs_err"], "ms": ref_ms,
@@ -2411,7 +2616,7 @@ def main() -> int:
     entries = [
         kernel_entry("k1_render", csrc + "k1_render.cu",
                      "bevy_raytrace_tpu/kernels/mxu_render.py:99", launches,
-                     [k1_check]),
+                     [k1_check, k1_culled_check]),
         kernel_entry("k2_record", csrc + "k2_record.cu",
                      "bevy_raytrace_tpu/kernels/pallas_render.py:123",
                      grad_launches["k2"], checks["k2"]),
@@ -2436,6 +2641,7 @@ def main() -> int:
     entries[0]["launches_by_mode"] = k1_modes
     entries[3]["launches_by_mode"] = shard_launches["k4_modes"]
     entries[0]["flagship_frame"] = k1_flagship
+    entries[0]["culled"] = k1_culled
     for entry in (entries[0], entries[3]):
         check(all(v > 0 for v in entry["launches_by_mode"].values()),
               f"a {entry['name']} table mode was launched on no path: "

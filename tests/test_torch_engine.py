@@ -56,6 +56,78 @@ def test_cuda_backend_needs_a_cuda_device():
         Renderer(CFG, backend="mxu")
 
 
+@pytest.fixture
+def cuda_session(monkeypatch):
+    """Renderer(backend="cuda") past its device check: its session (the
+    probe frame, the cached perm, replan_interval) then renders CPU scenes
+    through K1's twin, where the reference's tests run the TPU kernel in
+    interpret mode (tests/test_engine.py, the test_renderer_mxu_* four)."""
+    from bevy_raytrace_tpu_torch.wavefront import engine
+
+    monkeypatch.setattr(engine, "resolve", lambda device: torch.device("cuda"))
+    return lambda cfg, **kw: Renderer(cfg, backend="cuda", **kw)
+
+
+def test_cuda_session_temporal_perm_reuse(cuda_session):
+    """Frame 0 caches the cost-map permutation; frame 1 renders on it and
+    is bit for bit the plain K1 render of frame 1; replan() drops it."""
+    from bevy_raytrace_tpu_torch.kernels.render_lanes import render_mxu
+
+    scene, cam = _scene()
+    r = cuda_session(CFG)
+    r.render_frame(scene, cam)
+    assert r._perm is not None
+    img1 = r.render_frame(scene, cam)
+    assert torch.equal(img1, render_mxu(scene, cam, CFG, 1))
+    r.replan()
+    assert r._perm is None
+
+
+def test_cuda_session_frame0_rest_pass(cuda_session):
+    """spp above the probe's: frame 0 is the probe plus the rest pass
+    (sample_base), bit for bit the balanced render of frame 0."""
+    from bevy_raytrace_tpu_torch.kernels.render_lanes import (
+        render_mxu_balanced,
+    )
+
+    cfg = CFG.replace(samples_per_pixel=32)
+    scene, cam = _scene()
+    img0 = cuda_session(cfg).render_frame(scene, cam)
+    assert torch.equal(img0, render_mxu_balanced(scene, cam, cfg, 0))
+
+
+def test_cuda_session_auto_replan_interval(cuda_session):
+    """replan_interval=2 re-probes every 2 frames: probe frames allclose to
+    the plain render (the probe's samples are summed apart), cached frames
+    bit for bit, and the perm replaced on schedule."""
+    from bevy_raytrace_tpu_torch.kernels.render_lanes import render_mxu
+
+    cfg = CFG.replace(samples_per_pixel=20)  # probe 16 + a rest pass
+    scene, cam = _scene()
+    r = cuda_session(cfg, replan_interval=2)
+    perms = []
+    for i in range(4):
+        img = r.render_frame(scene, cam)
+        want = render_mxu(scene, cam, cfg, i)
+        if i % 2 == 0:  # probe frames
+            np.testing.assert_allclose(img.numpy(), want.numpy(), atol=2e-4)
+        else:
+            assert torch.equal(img, want)
+        perms.append(r._perm)
+    assert perms[0] is perms[1] and perms[2] is perms[3]
+    assert perms[2] is not perms[0]
+
+
+def test_cuda_session_replan_interval_off_by_default(cuda_session):
+    scene, cam = _scene()
+    r = cuda_session(CFG)
+    r.render_frame(scene, cam)
+    perm0 = r._perm
+    for _ in range(3):
+        r.render_frame(scene, cam)
+    assert r._perm is perm0 and r.replan_interval == 0
+
+
 def test_pallas_backend_plans_by_count_and_cluster_size():
     """Renderer(backend="pallas"): the cluster plan is built from the first
     scene of each (sphere count, cluster_size), only for scenes of at least

@@ -116,9 +116,10 @@ def test_tools_help_needs_no_device():
         return sorted((PKG / "_build").glob("*"))
 
     before = listing()
+    tools = ("proto_probes", "fp32_probe", "grad_bench", "scaling",
+             "ref_probe", "livechunks")
     for cmd in [["-m", f"bevy_raytrace_tpu_torch.tools.{tool}"]
-                for tool in ("proto_probes", "fp32_probe", "grad_bench",
-                             "scaling", "ref_probe")] + [["bench_torch.py"]]:
+                for tool in tools] + [["bench_torch.py"]]:
         out = subprocess.run([sys.executable, *cmd, "--help"],
                              cwd=PKG.parent, capture_output=True, text=True,
                              timeout=120)

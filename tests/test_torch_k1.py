@@ -115,6 +115,62 @@ def test_probe_plus_rest_equals_full_render():
     assert perm.dtype == torch.int32 and perm.shape == (cfg.num_pixels,)
 
 
+def _len_maps():
+    """Cost maps with many equal costs, where the tie order decides the
+    perm: the twin's own (rtiow at 64x32x4) and seeded quarters."""
+    scene, cam, cfg = _small("rtiow_final")
+    _, lmap = k1.render_mxu_with_len(scene, cam, cfg)
+    rng = np.random.default_rng(11)
+    seeded = (rng.integers(4, 33, (24, 40)) / 4).astype(np.float32)
+    return [lmap.numpy(), seeded]
+
+
+@pytest.mark.parametrize("coherent", [True, False])
+def test_balance_perm_matches_reference(coherent):
+    """The perm is integer work: bit for bit the reference's, for both
+    orders and several quanta (equal costs sort stably without
+    `coherent`, as jnp.argsort does)."""
+    import jax.numpy as jnp
+
+    from bevy_raytrace_tpu.kernels.mxu_render import balance_perm as j_perm
+
+    for len_map in _len_maps():
+        for quant in (2.0, 4.0, 0.5):
+            want = np.asarray(j_perm(jnp.asarray(len_map), coherent=coherent,
+                                     quant=quant))
+            got = k1.balance_perm(torch.from_numpy(len_map),
+                                  coherent=coherent, quant=quant)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_probe_reuse_allclose():
+    """tests/test_mxu.py's probe-reuse test: the reused probe renders the
+    same paths, summed in two groups (allclose to the plain render); with
+    probe_reuse=False the probe only sorts and the image is the plain
+    render's bit for bit."""
+    scene, cam, cfg = _small("config2", samples_per_pixel=8)
+    plain = k1.render_mxu(scene, cam, cfg).numpy()
+    reuse = k1.render_mxu_balanced(scene, cam, cfg, probe_spp=2,
+                                   probe_reuse=True).numpy()
+    np.testing.assert_allclose(reuse, plain, atol=1e-5)
+    exact = k1.render_mxu_balanced(scene, cam, cfg, probe_spp=2,
+                                   probe_reuse=False).numpy()
+    np.testing.assert_array_equal(exact, plain)
+
+
+def test_balanced_bit_identical():
+    """tests/test_mxu.py's: cost-sorting pixels re-schedules the lanes but
+    changes no bit of the image (the default probe takes every sample)."""
+    scene, cam, cfg = _small("config2", width=64, height=48,
+                             samples_per_pixel=4, max_depth=6)
+    plain = k1.render_mxu(scene, cam, cfg).numpy()
+    for reuse in (True, False):
+        np.testing.assert_array_equal(
+            k1.render_mxu_balanced(scene, cam, cfg,
+                                   probe_reuse=reuse).numpy(), plain)
+
+
 def test_twin_matches_torch_wavefront_and_counts_rounds():
     """The twin against the port's own wavefront (the oracle it is held to
     on the card), and the cost map's range: [1, max_depth], ~1 for sky."""

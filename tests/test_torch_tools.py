@@ -1,6 +1,6 @@
 """The port's tool entry points on the CPU: `tools.proto_probes`,
 `tools.fp32_probe`, `tools.grad_bench`, `tools.scaling`'s record,
-`tools.ref_probe` and `graft_entry`.
+`tools.ref_probe`, `tools.livechunks` and `graft_entry`.
 
 On the CPU every probe runs its plain PyTorch version (the wrappers take it
 because the tensors lie on the CPU); the rates of the card are measured on
@@ -22,6 +22,7 @@ from bevy_raytrace_tpu_torch import scenes as tsc
 from bevy_raytrace_tpu_torch.tools import (
     fp32_probe,
     grad_bench,
+    livechunks,
     proto_probes,
     ref_probe,
     scaling,
@@ -252,3 +253,35 @@ def test_ref_probe_on_the_cpu(monkeypatch, capsys):
     assert sorted(json.loads(capsys.readouterr().out)) == [
         "backend", "device", "spp1_pipelined_rays_per_s",
         "spp1_sync_rays_per_s"]
+
+
+def test_livechunks_on_the_cpu(capsys):
+    """The culled twin's live count on rtiow (486 spheres) at 32x24x2: the
+    mean within (0, C), its p90, one timed line per layout, and the record
+    in RESULTS; max_rounds caps every lane's rounds."""
+    assert livechunks.main(["12", "2", "5", "--width", "32", "--height",
+                            "24", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "plan: 41 chunks x 12"
+    assert lines[1].startswith("live chunks/round: mean ")
+    assert "/ 41" in lines[1] and lines[1].endswith("on cpu")
+    assert lines[2] == "dense launch: not timed with max_rounds"
+    assert [ln.split()[0] for ln in lines[3:]] == ["coherent", "identity"]
+    (row,) = livechunks.RESULTS
+    assert 0.0 < row["mean_live_chunks"] < 41 and row["n_clusters"] == 41
+    assert row["mean_live_chunks"] <= row["p90_live_chunks"] + 41
+    assert 0 < row["rounds"] <= 32 * 24 * 5
+    assert sorted(row["ms"]) == ["coherent", "identity"]
+    assert row["dense_ms"] == {}
+    # A lane stops at max_rounds: one round each at 1.  Without a cap the
+    # dense launch of the same lanes is timed beside the culled one.
+    assert livechunks.main(["12", "2", "1", "--width", "32", "--height",
+                            "24", "--device", "cpu"]) == 0
+    assert livechunks.RESULTS[0]["rounds"] == 32 * 24
+    capsys.readouterr()
+    assert livechunks.main(["64", "1", "0", "--width", "16", "--height",
+                            "16", "--depth", "2", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "plan: 8 chunks x 64" and "dense" in lines[2]
+    assert sorted(livechunks.RESULTS[0]["dense_ms"]) == ["coherent",
+                                                        "identity"]
