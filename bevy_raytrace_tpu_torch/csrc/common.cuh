@@ -243,9 +243,11 @@ __device__ __forceinline__ float sweep_root(const float4 g, const float (&o)[3],
 // ---- host side: the staged sphere table of K1 and K4 ---------------------
 
 // The most bytes of dynamic shared memory a block of `kernel` may take: the
-// per-block opt-in maximum less the kernel's static shared memory.
+// per-block opt-in maximum less the kernel's static shared memory (written
+// to *static_bytes when given).
 template <typename Kernel>
-inline cudaError_t dynamic_smem_max(Kernel kernel, int* out) {
+inline cudaError_t dynamic_smem_max(Kernel kernel, int* out,
+                                    int* static_bytes = nullptr) {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t err;
@@ -256,23 +258,26 @@ inline cudaError_t dynamic_smem_max(Kernel kernel, int* out) {
       (err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
     return err;
   *out = optin - static_cast<int>(attr.sharedSizeBytes);
+  if (static_bytes != nullptr)
+    *static_bytes = static_cast<int>(attr.sharedSizeBytes);
   return cudaSuccess;
 }
 
 // Sets up a launch of `kernel` that stages n_rows float4 rows in dynamic
 // shared memory: writes the bytes to *smem and raises the kernel's limit
-// above the 48 KB a launch gets without asking.  cudaErrorInvalidValue when
-// the rows do not fit a block: the caller asked for a mode the device
-// cannot give, and the launch must fail rather than read the rows elsewhere.
+// when they and its static shared memory pass the 48 KB a launch gets
+// without asking.  cudaErrorInvalidValue when the rows do not fit a block:
+// the caller asked for a mode the device cannot give, and the launch must
+// fail rather than read the rows elsewhere.
 template <typename Kernel>
 inline cudaError_t prepare_staged_launch(Kernel kernel, int n_rows,
                                          size_t* smem) {
-  int max_bytes = 0;
-  cudaError_t err = dynamic_smem_max(kernel, &max_bytes);
+  int max_bytes = 0, static_bytes = 0;
+  cudaError_t err = dynamic_smem_max(kernel, &max_bytes, &static_bytes);
   if (err != cudaSuccess) return err;
   *smem = sizeof(float4) * static_cast<size_t>(n_rows);
   if (*smem > static_cast<size_t>(max_bytes)) return cudaErrorInvalidValue;
-  if (*smem > 48 * 1024)
+  if (*smem + static_bytes > 48 * 1024)
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(*smem));

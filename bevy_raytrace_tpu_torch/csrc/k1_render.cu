@@ -37,32 +37,40 @@
 // are added in the same order as a nested sample / bounce loop's, bit for
 // bit.
 //
-// The chunk-culled traversal (CULLED; the TPU kernel with n_cull > 0, its
-// `plan=`): the rows arrive gathered into a cluster plan's Morton order,
-// chunk c owning rows [c L, min((c + 1) L, S)), with members[row] its scene
-// index, bounds[c] = (bx, by, bz, br^2) from the live geometry and the
-// priority rows prio[k] (the K largest spheres).  Each round a lane
+// The chunk-culled traversal (k1_culled_kernel; the TPU kernel with
+// n_cull > 0, its `plan=`): the rows arrive gathered into a cluster plan's
+// Morton order, chunk c owning rows [c L, min((c + 1) L, S)), with
+// members[row] its scene index, row_of its inverse, bounds[c] = (bx, by, bz,
+// br^2) from the live geometry and the priority rows prio[k] (the K largest
+// spheres).  Each round a lane
 //   * takes t_ub, the nearest valid root among the priority rows and the row
 //     of its previous winner (kept across rounds and refills, -1 = none,
 //     the reference's r^2 = -1 dud), each by brt::sweep_root, the sweep's own
 //     arithmetic, so t_ub never lands below the winner's t;
-//   * tests its ray against every chunk's bounding sphere, each operation
-//     rounded on its own (no contraction); a chunk is live when far > t_min
-//     and near <= t_ub (<=: a tight bound's near root can round onto t_ub);
-//   * sweeps the members of the live chunks only, keeping the (t, scene
-//     index)-least valid root: the dense sweep's winner, tie rule included,
-//     since the bounds are conservative (clusters.py widens every radius).
-// So the image and len are the dense kernel's bit for bit.  The cull is per
-// thread, as K2's port does it: a lane skips a chunk its own ray misses and
-// the warp's divergence does what the TPU kernel's tile-wide worklist did;
-// no pad row is visited.  With live != nullptr each lane also writes its
-// count of live chunks summed over its rounds; max_rounds > 0 ends a lane
-// after that many rounds (the reference's probe cap, tools/livechunks.py).
+//   * tests its ray against every chunk's bounding sphere: a chunk is live
+//     when the point of [t_min, t_ub] nearest the bound's center lies
+//     inside it (the chord meets the segment; no root taken);
+//   * gets the (t, scene index)-least valid root among the members of its
+//     live chunks: the dense sweep's winner, tie rule included, since the
+//     bounds are conservative (clusters.py widens every radius).
+// So the image and len are the dense kernel's bit for bit.  The member work
+// is shared by the warp: the lanes vote on each chunk, their (chunk, lane)
+// pairs go into a per-warp queue in shared memory, the warp's 32 threads
+// sweep the pairs in strides, each with the owning lane's ray, and fold what
+// they find into that lane's 64-bit (t's bits, scene index) key with one
+// shared-memory atomicMin a pair.  A warp so sweeps each lane's own live
+// chunks, 8.4 of the flagship's 41 a lane and round, where a per-thread cull
+// walked the union of its 32 lanes' (about 26, PERF.md section 6).  The warp
+// runs its rounds together: a thread whose own samples are done, or that
+// lies past the lanes, stays in the loop to vote and sweep until the warp's
+// last lane is done.  With live != nullptr each lane also writes its count
+// of live chunks summed over its rounds; max_rounds > 0 ends a lane after
+// that many rounds (the reference's probe cap, tools/livechunks.py).
 //
 // The sphere rows are staged in dynamic shared memory once a block
 // (table_mode 1; the rate probe V3 ran the same loop 1.30x faster from
-// there), before any thread may leave, and with them (CULLED) the bounds and
-// the priority rows; tables larger than the plan allows
+// there), before any thread may leave, and with them (culled) the bounds
+// and the priority rows; tables larger than the plan allows
 // (kernels/common.py::forward_table_plan, from brt_k1_table_bytes_limit and
 // brt_k1_culled_table_bytes_limit) are read through the read-only cache
 // (table_mode 0).  Both modes compute the same bits.
@@ -78,7 +86,11 @@
 // shared memory or L1/L2, and the only device-memory traffic is pids in and
 // 16 B per lane out.  Lanes idle once their own samples are done;
 // balance_perm sorts pixels by measured path length so a warp holds
-// similar-cost pixels.
+// similar-cost pixels.  The culled kernel is bound the same way, by its
+// bound tests (41 a round on the flagship, about 14 operations each, no
+// root) and its live chunks' member tests, which read rows the warp's
+// other threads may not (no broadcast), plus a vote, a prefix count and a
+// store a live chunk and an atomicMin a pair.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3.  No
 // --use_fast_math.  --fmad is left at its default (on): a*b+c contracts to
@@ -99,6 +111,21 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
+// The culled kernel's queue of (chunk, lane) pairs, per warp: it is swept
+// whenever another chunk's votes might not fit, so any chunk count goes
+// through it in passes.  512 holds a flagship round's ~270 pairs in one
+// pass; 256 was 7% slower there (two passes, two ragged last strides) and
+// 1,024 3% slower (PERF.md, section 6).
+constexpr int kQueue = 512;
+// Blocks of the culled kernel an SM must hold, for __launch_bounds__: at
+// 8, ptxas keeps it in 64 registers with no spill; left to itself it took
+// 48 registers and spilled 56 bytes in the staged instantiation, and at 7
+// (72 registers) the flagship ran 4% slower (PERF.md, section 6).
+constexpr int kCulledBlocks = 8;
+// A lane's nearest-hit key before any pair of the round found a hit.
+constexpr unsigned long long kNoHit = ~0ull;
 
 // A table row: from shared memory (SMEM, staged once a block) or through
 // the read-only cache.
@@ -107,17 +134,166 @@ __device__ __forceinline__ float4 row4(const float4* __restrict__ p, int i) {
   return SMEM ? p[i] : __ldg(p + i);
 }
 
-// The culled nearest hit of the ray (o, d) -> (best_t, best), best the ROW
-// (-1 on a miss); adds the round's live chunks to `live`.  rows [n_rows] in
-// the plan's order, bnds [n_chunks], prio [n_prio], prev the row of the
-// lane's previous winner or -1.
+// A new path: sample s's camera ray (o, d) and throughput 1.  The camera
+// and the pixel's coordinates are read or derived here, once a path, so
+// they hold no register through the sweep.
+__device__ __forceinline__ void start_path(
+    const float* __restrict__ cam_in, int pid, uint32_t sample_base, int s,
+    uint32_t seed, int width, int height, uint32_t& su, float (&o)[3],
+    float (&d)[3], float& tp_r, float& tp_g, float& tp_b) {
+  const brt::Cam c = brt::load_cam(cam_in);
+  su = sample_base + static_cast<uint32_t>(s);
+  uint32_t ca = static_cast<uint32_t>(pid), cb = su, cc = brt::CAMERA_STREAM,
+           cd = seed;
+  brt::pcg4d(ca, cb, cc, cd);
+  brt::camera_ray(c, static_cast<float>(pid % width),
+                  static_cast<float>(pid / width), static_cast<float>(width),
+                  static_cast<float>(height), brt::to_unit(ca),
+                  brt::to_unit(cb), brt::to_unit(cc), brt::to_unit(cd), o, d);
+  tp_r = tp_g = tp_b = 1.f;
+}
+
+// The rest of a round, once its nearest hit `best` (a row, -1 on a miss)
+// is known: the sky on a miss, else the winner's exact t, the hit frame
+// and the scatter.  Returns whether the path ended (a miss, an absorbed
+// scatter or depth exhaustion); else (o, d) is the next bounce's ray.
 template <bool SMEM>
-__device__ __forceinline__ void culled_nearest(
-    const float4* __restrict__ rows, int n_rows,
-    const float4* __restrict__ bnds, int n_chunks, int chunk,
-    const int* __restrict__ members, const float4* __restrict__ prio,
-    int n_prio, int prev, const float (&o)[3], const float (&d)[3],
-    float t_min, float& best_t, int& best, float& live) {
+__device__ __forceinline__ bool shade(
+    const float4* __restrict__ rows, const float4* __restrict__ geom,
+    const float4* __restrict__ attr, int best, uint32_t upid, uint32_t su,
+    uint32_t seed, int max_depth, float t_min, int& bounce, float (&o)[3],
+    float (&d)[3], float& tp_r, float& tp_g, float& tp_b, float& acc_r,
+    float& acc_g, float& acc_b) {
+  bool ended = true;
+  if (best < 0) {  // miss: sky, and the path ends
+    float sk_r, sk_g;
+    brt::sky(d[1], sk_r, sk_g);
+    acc_r += tp_r * sk_r;
+    acc_g += tp_g * sk_g;
+    acc_b += tp_b;
+  } else {
+    // ---- exact t of the winner, hit frame ---------------------------------
+    const float4 g = SMEM ? rows[best] : __ldg(geom + best);
+    const float4 a0 = __ldg(attr + 2 * best);
+    const float4 a1 = __ldg(attr + 2 * best + 1);
+    const float rocx = o[0] - g.x, rocy = o[1] - g.y, rocz = o[2] - g.z;
+    const float hb_r = rocx * d[0] + rocy * d[1] + rocz * d[2];
+    const float cq_r = (rocx * rocx + rocy * rocy + rocz * rocz) - g.w;
+    const float sq_r = sqrtf(fmaxf(hb_r * hb_r - cq_r, 0.f));
+    const float rn_r = -hb_r - sq_r;
+    const float bt = rn_r > t_min ? rn_r : sq_r - hb_r;
+    const float h[3] = {o[0] + bt * d[0], o[1] + bt * d[1], o[2] + bt * d[2]};
+    float n[3] = {(h[0] - g.x) * a0.x, (h[1] - g.y) * a0.x,
+                  (h[2] - g.z) * a0.x};
+    const bool front = (d[0] * n[0] + d[1] * n[1] + d[2] * n[2]) < 0.f;
+    if (!front) {
+      n[0] = -n[0];
+      n[1] = -n[1];
+      n[2] = -n[2];
+    }
+    // ---- shade: a fuzzed metal reflection below the surface is absorbed --
+    uint32_t ba = upid, bb = su, bc = static_cast<uint32_t>(bounce), bd = seed;
+    brt::pcg4d(ba, bb, bc, bd);
+    float sdir[3];
+    if (brt::scatter(d, n, front, a1.x, a1.y, a1.z, brt::to_unit(ba),
+                     brt::to_unit(bb), brt::to_unit(bc), brt::to_unit(bd),
+                     sdir)) {
+      if (brt::is_lambertian(a1.x) || brt::is_metal(a1.x)) {  // glass: 1
+        tp_r *= a0.y;
+        tp_g *= a0.z;
+        tp_b *= a0.w;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        o[k] = h[k];
+        d[k] = sdir[k];
+      }
+      // Depth exhaustion kills the path with black.
+      ended = ++bounce == max_depth;
+    }
+  }
+  return ended;
+}
+
+// geom[i] = (cx, cy, cz, r^2); attr[2i] = (1/r, albedo r, g, b),
+// attr[2i+1] = (kind, fuzz, ior, 0).  1/r keeps the radius sign (hollow glass).
+// SMEM: geom is staged into dynamic shared memory before any thread leaves,
+// and the sweep and the winner's row read it there.
+template <bool SMEM>
+__global__ void __launch_bounds__(kThreads)
+    k1_render_kernel(const float4* __restrict__ geom,
+                     const float4* __restrict__ attr, int n_spheres,
+                     const float* __restrict__ cam_in,
+                     const int* __restrict__ pids, int n_lanes,
+                     float* __restrict__ fb, float* __restrict__ len_out,
+                     uint32_t seed, uint32_t sample_base, int spp,
+                     int max_depth, float t_min, int width, int height) {
+  extern __shared__ float4 staged[];
+  if (SMEM) {
+    for (int j = threadIdx.x; j < n_spheres; j += kThreads)
+      staged[j] = __ldg(geom + j);
+    __syncthreads();
+  }
+  const float4* rows = SMEM ? staged : geom;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n_lanes) return;
+  const int pid = pids[lane];
+  const uint32_t upid = static_cast<uint32_t>(pid);
+
+  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, rounds = 0.f;
+  // The lane's path: sample s, its bounce, ray (o, d) and throughput.
+  int s = max_depth > 0 ? 0 : spp;  // depth 0: no round, black
+  int bounce = 0;
+  uint32_t su = 0;
+  float o[3], d[3];
+  float tp_r = 1.f, tp_g = 1.f, tp_b = 1.f;
+
+  while (s < spp) {
+    if (bounce == 0)
+      start_path(cam_in, pid, sample_base, s, seed, width, height, su, o, d,
+                 tp_r, tp_g, tp_b);
+    rounds += 1.0f;
+    // ---- nearest hit: first index wins ties ------------------------------
+    float best_t;
+    int best;
+    brt::sweep_nearest<1, SMEM>(rows, n_spheres, o, d, t_min, best_t, best);
+    if (shade<SMEM>(rows, geom, attr, best, upid, su, seed, max_depth, t_min,
+                    bounce, o, d, tp_r, tp_g, tp_b, acc_r, acc_g, acc_b)) {
+      ++s;  // the lane takes its next sample in the next round
+      bounce = 0;
+    }
+  }
+  fb[3 * lane + 0] = acc_r;
+  fb[3 * lane + 1] = acc_g;
+  fb[3 * lane + 2] = acc_b;
+  len_out[lane] = rounds;
+}
+
+// ---- the chunk-culled traversal ------------------------------------------
+
+// A warp's round: each lane's ray, each lane's nearest (t, scene index) key
+// so far, and the (chunk, lane) pairs still to sweep.
+struct WarpQueue {
+  float4 o[32], d[32];
+  unsigned long long key[32];
+  int pairs[kQueue];
+};
+
+// t's bits in an order that ranks like the floats (no NaN reaches here;
+// -0 is taken as +0, which it equals).
+__device__ __forceinline__ uint32_t ordered(float t) {
+  const uint32_t u = __float_as_uint(t + 0.f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// t_ub: the nearest valid root among the priority rows and the row `prev`
+// of the lane's previous winner (-1 = none), each by brt::sweep_root, the
+// sweep's own arithmetic, so t_ub never lands below the winner's t.
+template <bool SMEM>
+__device__ __forceinline__ float upper_bound(
+    const float4* __restrict__ prio, int n_prio,
+    const float4* __restrict__ rows, int prev, const float (&o)[3],
+    const float (&d)[3], float t_min) {
   float t_ub = 1e30f;
   for (int k = 0; k < n_prio; ++k) {
     const float t = brt::sweep_root(row4<SMEM>(prio, k), o, d, t_min);
@@ -127,56 +303,110 @@ __device__ __forceinline__ void culled_nearest(
     const float t = brt::sweep_root(row4<SMEM>(rows, prev), o, d, t_min);
     if (t > t_min && t < t_ub) t_ub = t;
   }
-  best_t = 0.f;
-  best = -1;
-  for (int c = 0; c < n_chunks; ++c) {
-    const float4 b = row4<SMEM>(bnds, c);
-    const float bx = __fsub_rn(o[0], b.x), by = __fsub_rn(o[1], b.y),
-                bz = __fsub_rn(o[2], b.z);
-    const float bhb = __fadd_rn(__fadd_rn(__fmul_rn(bx, d[0]),
-                                          __fmul_rn(by, d[1])),
-                                __fmul_rn(bz, d[2]));
-    const float bcq = __fsub_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(bx, bx), __fmul_rn(by, by)),
-                  __fmul_rn(bz, bz)),
-        b.w);
-    const float disc = __fsub_rn(__fmul_rn(bhb, bhb), bcq);
-    // A ray that misses the bound (disc < 0, or NaN) takes no root: the
-    // root's NaN would fail both compares anyway, and a negative argument
-    // sends an IEEE square root down its slow path.
-    if (!(disc >= 0.f)) continue;
-    const float bsq = __fsqrt_rn(disc);
-    if (!(__fsub_rn(bsq, bhb) > t_min && __fsub_rn(-bhb, bsq) <= t_ub))
-      continue;
-    live += 1.f;
-    const int hi = min(c * chunk + chunk, n_rows);
-    for (int i = c * chunk; i < hi; ++i) {
+  return t_ub;
+}
+
+// Whether the ray may meet a member of the chunk bounded by b = (bx, by,
+// bz, br^2) in [t_min, t_ub]: whether the point of the segment nearest the
+// bound's center, at t* = -hb clamped to [t_min, t_ub], lies inside it.  In
+// exact arithmetic this is the chord test (far root >= t_min and near root
+// <= t_ub), closed at both ends, with no root taken.  Its rounding moves
+// |v|^2 by about 6 u br (|oc| + t*) at the bound's surface (u = 2^-24);
+// clusters.py widens every radius by 1.0001 x + 1e-4, which adds at least
+// 2e-4 br (1 + br) to br^2, so the test stays conservative while |oc| + t*
+// is below some 500 (1 + br).  An error in t* moves v along the ray, where
+// |v|^2 changes by its square: nothing against that margin.
+__device__ __forceinline__ bool chunk_live(const float4 b, const float (&o)[3],
+                                           const float (&d)[3], float t_min,
+                                           float t_ub) {
+  const float bx = o[0] - b.x, by = o[1] - b.y, bz = o[2] - b.z;
+  const float hb = __fmaf_rn(bx, d[0], __fmaf_rn(by, d[1], __fmul_rn(bz, d[2])));
+  const float ts = fminf(fmaxf(-hb, t_min), t_ub);
+  const float vx = __fmaf_rn(ts, d[0], bx), vy = __fmaf_rn(ts, d[1], by),
+              vz = __fmaf_rn(ts, d[2], bz);
+  return __fmaf_rn(vx, vx, __fmaf_rn(vy, vy, __fmul_rn(vz, vz))) <= b.w;
+}
+
+// The warp sweeps the first `count` pairs of q in strides of 32: a thread
+// takes a pair (chunk c, lane j), sweeps chunk c's rows with lane j's ray,
+// and folds its (t, scene index)-least valid root into j's key with one
+// atomicMin.  The lowest key is the dense sweep's winner: the least t, the
+// lower scene index on a tie.  The row loop is the dense sweep's, with a
+// flag for an exact tie instead of the scene-index compare, which would
+// load members in the loop and keep the compiler from overlapping the
+// rows' loads (11% of the flagship); a chunk with a tie is swept again
+// with the compare.  The flag is a bool set in the update's else on
+// purpose: as an unsigned, or set before the update, the same sweep ran 11%
+// slower on the flagship and 17% at depth 1, with the same bits (PERF.md,
+// section 6).
+template <bool SMEM>
+__device__ __forceinline__ void sweep_pairs(
+    WarpQueue& q, int count, const float4* __restrict__ rows, int n_rows,
+    int chunk, const int* __restrict__ members, float t_min) {
+  for (int p = threadIdx.x & 31; p < count; p += 32) {
+    const int pair = q.pairs[p];
+    const int j = pair & 31, lo = (pair >> 5) * chunk;
+    const float4 ro = q.o[j], rd = q.d[j];
+    const float o[3] = {ro.x, ro.y, ro.z}, d[3] = {rd.x, rd.y, rd.z};
+    const int hi = min(lo + chunk, n_rows);
+    float best_t = 0.f;
+    int best = -1;
+    bool tie = false;
+    for (int i = lo; i < hi; ++i) {
       const float tn = brt::sweep_root(row4<SMEM>(rows, i), o, d, t_min);
       if (tn > t_min) {
         if (best < 0 || tn < best_t) {
           best_t = tn;
           best = i;
-        } else if (tn == best_t && __ldg(members + i) < __ldg(members + best)) {
-          best = i;  // the dense sweep's tie rule: the lower scene index
+        } else {
+          tie |= tn == best_t;
         }
       }
     }
+    if (best < 0) continue;
+    int scene = __ldg(members + best);
+    if (tie) {  // the dense sweep's tie rule: the lower scene index
+      for (int i = lo; i < hi; ++i) {
+        const int m = __ldg(members + i);
+        if (m < scene &&
+            brt::sweep_root(row4<SMEM>(rows, i), o, d, t_min) == best_t)
+          scene = m;
+      }
+    }
+    const unsigned long long key =
+        static_cast<unsigned long long>(ordered(best_t)) << 32 |
+        static_cast<uint32_t>(scene);
+    if (key < *reinterpret_cast<volatile unsigned long long*>(&q.key[j]))
+      atomicMin(&q.key[j], key);
   }
 }
 
-// geom[i] = (cx, cy, cz, r^2); attr[2i] = (1/r, albedo r, g, b),
-// attr[2i+1] = (kind, fuzz, ior, 0).  1/r keeps the radius sign (hollow glass).
-// CULLED: rows in the plan's order, bounds [n_chunks], members [n_spheres],
-// prio [n_prio]; live [n_lanes] or nullptr.
-// SMEM: geom (and, CULLED, the bounds and priority rows after it) is staged
-// into dynamic shared memory before any thread leaves, and the loops and the
-// winner's row read it there.
-template <bool CULLED, bool SMEM>
-__global__ void __launch_bounds__(kThreads)
-    k1_render_kernel(const float4* __restrict__ geom,
+// K1 with the chunk-culled traversal: as k1_render_kernel, with the rows
+// (geom, attr) in the plan's order, bounds [n_chunks], members [n_spheres]
+// (row -> scene index), row_of [n_spheres] (its inverse), prio [n_prio],
+// live [n_lanes] or nullptr, max_rounds 0 or the rounds after which a lane
+// stops.  A warp runs its rounds together: every thread stays in the loop
+// until all 32 are done, and a thread past n_lanes, or done with its own
+// samples, only votes and sweeps the others' pairs.  Each round
+//   A. a lane that still has a path takes its t_ub (upper_bound) and tests
+//      its ray against every chunk bound (chunk_live), 32 chunks at a time
+//      into a bit mask, and adds its own live chunks to `live`; the warp
+//      votes on each chunk that is live for any of its lanes and appends
+//      the (chunk, lane) pairs to the warp's queue;
+//   B. the warp sweeps the queue's pairs in strides (sweep_pairs), whenever
+//      the next chunk's votes might not fit and at the end of the chunks;
+//   C. each lane reads its key, the scene index -> its row (row_of), and
+//      shades, as the dense kernel does.
+// So the member work is each lane's own live chunks, spread over the warp,
+// not the union of its lanes' live chunks that a per-thread cull walks.
+// SMEM stages the rows, the bounds and the priority rows, in that order.
+template <bool SMEM>
+__global__ void __launch_bounds__(kThreads, kCulledBlocks)
+    k1_culled_kernel(const float4* __restrict__ geom,
                      const float4* __restrict__ attr, int n_spheres,
                      const float4* __restrict__ bounds,
                      const int* __restrict__ members,
+                     const int* __restrict__ row_of,
                      const float4* __restrict__ prio, int n_chunks, int chunk,
                      int n_prio, const float* __restrict__ cam_in,
                      const int* __restrict__ pids, int n_lanes,
@@ -185,151 +415,120 @@ __global__ void __launch_bounds__(kThreads)
                      uint32_t sample_base, int spp, int max_depth, float t_min,
                      int width, int height, int max_rounds) {
   extern __shared__ float4 staged[];
+  __shared__ WarpQueue queues[kWarps];
   if (SMEM) {
     for (int j = threadIdx.x; j < n_spheres; j += kThreads)
       staged[j] = __ldg(geom + j);
-    if (CULLED) {
-      for (int j = threadIdx.x; j < n_chunks; j += kThreads)
-        staged[n_spheres + j] = __ldg(bounds + j);
-      for (int j = threadIdx.x; j < n_prio; j += kThreads)
-        staged[n_spheres + n_chunks + j] = __ldg(prio + j);
-    }
+    for (int j = threadIdx.x; j < n_chunks; j += kThreads)
+      staged[n_spheres + j] = __ldg(bounds + j);
+    for (int j = threadIdx.x; j < n_prio; j += kThreads)
+      staged[n_spheres + n_chunks + j] = __ldg(prio + j);
     __syncthreads();
   }
   const float4* rows = SMEM ? staged : geom;
   const float4* bnds = SMEM ? staged + n_spheres : bounds;
   const float4* prs = SMEM ? staged + n_spheres + n_chunks : prio;
+  WarpQueue& q = queues[threadIdx.x >> 5];
+  const int me = threadIdx.x & 31;
+  const unsigned below = (1u << me) - 1u;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const int pid = pids[lane];
+  const bool mine = lane < n_lanes;
+  const int pid = mine ? pids[lane] : 0;
   const uint32_t upid = static_cast<uint32_t>(pid);
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, rounds = 0.f, live = 0.f;
-  // The lane's path: sample s, its bounce, ray (o, d) and throughput.
-  int s = max_depth > 0 ? 0 : spp;  // depth 0: no round, black
+  int s = mine && max_depth > 0 ? 0 : spp;  // depth 0: no round, black
   int bounce = 0;
   uint32_t su = 0;
-  float o[3], d[3];
+  float o[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f};
   float tp_r = 1.f, tp_g = 1.f, tp_b = 1.f;
-  int prev = -1;  // CULLED: the row of the lane's last winner
+  int prev = -1;  // the row of the lane's last winner
 
-  while (s < spp) {
-    if (CULLED && max_rounds > 0 && rounds >= static_cast<float>(max_rounds))
-      break;
-    if (bounce == 0) {  // a new path: sample s's camera ray
-      // The camera and the pixel's coordinates are read or derived here,
-      // once a path, so they hold no register through the sweep.
-      const brt::Cam c = brt::load_cam(cam_in);
-      su = sample_base + static_cast<uint32_t>(s);
-      uint32_t ca = upid, cb = su, cc = brt::CAMERA_STREAM, cd = seed;
-      brt::pcg4d(ca, cb, cc, cd);
-      brt::camera_ray(c, static_cast<float>(pid % width),
-                      static_cast<float>(pid / width),
-                      static_cast<float>(width), static_cast<float>(height),
-                      brt::to_unit(ca), brt::to_unit(cb), brt::to_unit(cc),
-                      brt::to_unit(cd), o, d);
-      tp_r = tp_g = tp_b = 1.f;
+  for (;;) {
+    const bool on =
+        s < spp && !(max_rounds > 0 && rounds >= static_cast<float>(max_rounds));
+    if (!__any_sync(kAll, on)) break;
+    float t_ub = 0.f;
+    if (on) {
+      if (bounce == 0)
+        start_path(cam_in, pid, sample_base, s, seed, width, height, su, o, d,
+                   tp_r, tp_g, tp_b);
+      rounds += 1.0f;
+      t_ub = upper_bound<SMEM>(prs, n_prio, rows, prev, o, d, t_min);
+      q.o[me] = make_float4(o[0], o[1], o[2], 0.f);
+      q.d[me] = make_float4(d[0], d[1], d[2], 0.f);
     }
-    rounds += 1.0f;
-    // ---- nearest hit: first index wins ties ------------------------------
-    float best_t;
-    int best;
-    if (CULLED)
-      culled_nearest<SMEM>(rows, n_spheres, bnds, n_chunks, chunk, members,
-                           prs, n_prio, prev, o, d, t_min, best_t, best, live);
-    else
-      brt::sweep_nearest<1, SMEM>(rows, n_spheres, o, d, t_min, best_t, best);
-    bool ended = true;
-    if (best < 0) {  // miss: sky, and the path ends
-      float sk_r, sk_g;
-      brt::sky(d[1], sk_r, sk_g);
-      acc_r += tp_r * sk_r;
-      acc_g += tp_g * sk_g;
-      acc_b += tp_b;
-    } else {
-      if (CULLED) prev = best;
-      // ---- exact t of the winner, hit frame -------------------------------
-      const float4 g = SMEM ? rows[best] : __ldg(geom + best);
-      const float4 a0 = __ldg(attr + 2 * best);
-      const float4 a1 = __ldg(attr + 2 * best + 1);
-      const float rocx = o[0] - g.x, rocy = o[1] - g.y, rocz = o[2] - g.z;
-      const float hb_r = rocx * d[0] + rocy * d[1] + rocz * d[2];
-      const float cq_r = (rocx * rocx + rocy * rocy + rocz * rocz) - g.w;
-      const float sq_r = sqrtf(fmaxf(hb_r * hb_r - cq_r, 0.f));
-      const float rn_r = -hb_r - sq_r;
-      const float bt = rn_r > t_min ? rn_r : sq_r - hb_r;
-      const float h[3] = {o[0] + bt * d[0], o[1] + bt * d[1], o[2] + bt * d[2]};
-      float n[3] = {(h[0] - g.x) * a0.x, (h[1] - g.y) * a0.x,
-                    (h[2] - g.z) * a0.x};
-      const bool front = (d[0] * n[0] + d[1] * n[1] + d[2] * n[2]) < 0.f;
-      if (!front) {
-        n[0] = -n[0];
-        n[1] = -n[1];
-        n[2] = -n[2];
+    q.key[me] = kNoHit;
+    __syncwarp();
+    // ---- A: the lanes' live chunks, as pairs; B: their sweep --------------
+    int count = 0;
+    for (int c0 = 0; c0 < n_chunks; c0 += 32) {
+      // This lane's live chunks among the next 32, as bits: a loop with no
+      // vote in it, so the bound tests overlap.
+      unsigned mask = 0;
+      if (on) {
+        const int n = min(32, n_chunks - c0);
+        for (int k = 0; k < n; ++k)
+          if (chunk_live(row4<SMEM>(bnds, c0 + k), o, d, t_min, t_ub))
+            mask |= 1u << k;
+        live += static_cast<float>(__popc(mask));
       }
-      // ---- shade: a fuzzed metal reflection below the surface is absorbed
-      uint32_t ba = upid, bb = su, bc = static_cast<uint32_t>(bounce),
-               bd = seed;
-      brt::pcg4d(ba, bb, bc, bd);
-      float sdir[3];
-      if (brt::scatter(d, n, front, a1.x, a1.y, a1.z, brt::to_unit(ba),
-                       brt::to_unit(bb), brt::to_unit(bc), brt::to_unit(bd),
-                       sdir)) {
-        if (brt::is_lambertian(a1.x) || brt::is_metal(a1.x)) {  // glass: 1
-          tp_r *= a0.y;
-          tp_g *= a0.z;
-          tp_b *= a0.w;
+      // The warp's pairs of those chunks, chunk by chunk, in lane order.
+      for (unsigned any = __reduce_or_sync(kAll, mask); any != 0u;
+           any &= any - 1u) {
+        const int k = __ffs(any) - 1;
+        const bool hit = (mask >> k) & 1u;
+        const unsigned vote = __ballot_sync(kAll, hit);
+        if (hit) q.pairs[count + __popc(vote & below)] = (c0 + k) << 5 | me;
+        count += __popc(vote);
+        if (count > kQueue - 32) {
+          __syncwarp();
+          sweep_pairs<SMEM>(q, count, rows, n_spheres, chunk, members, t_min);
+          count = 0;
+          __syncwarp();
         }
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          o[k] = h[k];
-          d[k] = sdir[k];
-        }
-        // Depth exhaustion kills the path with black.
-        ended = ++bounce == max_depth;
       }
     }
-    if (ended) {  // the lane takes its next sample in the next round
-      ++s;
-      bounce = 0;
+    __syncwarp();
+    sweep_pairs<SMEM>(q, count, rows, n_spheres, chunk, members, t_min);
+    __syncwarp();
+    // ---- C: the winner's row, and the rest of the round -------------------
+    if (on) {
+      const unsigned long long key = q.key[me];
+      const int best =
+          key == kNoHit ? -1 : __ldg(row_of + static_cast<uint32_t>(key));
+      if (best >= 0) prev = best;
+      if (shade<SMEM>(rows, geom, attr, best, upid, su, seed, max_depth, t_min,
+                      bounce, o, d, tp_r, tp_g, tp_b, acc_r, acc_g, acc_b)) {
+        ++s;
+        bounce = 0;
+      }
     }
   }
+  if (!mine) return;
   fb[3 * lane + 0] = acc_r;
   fb[3 * lane + 1] = acc_g;
   fb[3 * lane + 2] = acc_b;
   len_out[lane] = rounds;
-  if (CULLED && live_out != nullptr) live_out[lane] = live;
+  if (live_out != nullptr) live_out[lane] = live;
 }
 
-template <bool CULLED>
-int launch(const void* geom, const void* attr, int n_spheres,
-           const void* bounds, const void* members, const void* prio,
-           int n_chunks, int chunk, int n_prio, const void* cam,
-           const void* pids, int n_lanes, void* fb, void* len, void* live,
-           unsigned int seed, unsigned int sample_base, int spp, int max_depth,
-           float t_min, int width, int height, int max_rounds, int table_mode,
-           void* stream) {
+// Launches kernel<true> with n_rows staged rows (table_mode 1) or
+// kernel<false> (table_mode 0) over n_lanes lanes.
+template <typename Shared, typename Global, typename... Args>
+int launch(Shared shared, Global global, int n_rows, int n_lanes,
+           int table_mode, void* stream, Args... args) {
   if (n_lanes <= 0) return static_cast<int>(cudaSuccess);
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BRT_K1_ARGS                                                           \
-  static_cast<const float4*>(geom), static_cast<const float4*>(attr),         \
-      n_spheres, static_cast<const float4*>(bounds),                          \
-      static_cast<const int*>(members), static_cast<const float4*>(prio),     \
-      n_chunks, chunk, n_prio, static_cast<const float*>(cam),                \
-      static_cast<const int*>(pids), n_lanes, static_cast<float*>(fb),        \
-      static_cast<float*>(len), static_cast<float*>(live), seed, sample_base, \
-      spp, max_depth, t_min, width, height, max_rounds
   if (table_mode == 1) {
     size_t smem = 0;
-    const cudaError_t err = brt::prepare_staged_launch(
-        k1_render_kernel<CULLED, true>, n_spheres + n_chunks + n_prio, &smem);
+    const cudaError_t err = brt::prepare_staged_launch(shared, n_rows, &smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    k1_render_kernel<CULLED, true><<<blocks, kThreads, smem, st>>>(BRT_K1_ARGS);
+    shared<<<blocks, kThreads, smem, st>>>(args...);
   } else {
-    k1_render_kernel<CULLED, false><<<blocks, kThreads, 0, st>>>(BRT_K1_ARGS);
+    global<<<blocks, kThreads, 0, st>>>(args...);
   }
-#undef BRT_K1_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -340,15 +539,15 @@ int launch(const void* geom, const void* attr, int n_spheres,
 // fewer): see brt::table_bytes_limit.  Writes it to *out; returns a
 // cudaError_t.  kernels/common.py::forward_table_plan reads it.
 extern "C" int brt_k1_table_bytes_limit(int min_blocks, int* out) {
-  return static_cast<int>(brt::table_bytes_limit(
-      k1_render_kernel<false, true>, kThreads, min_blocks, out));
+  return static_cast<int>(brt::table_bytes_limit(k1_render_kernel<true>,
+                                                 kThreads, min_blocks, out));
 }
 
 // The same for the culled kernel, whose staged table holds the rows, the
-// bounds and the priority rows (16 bytes each).
+// bounds and the priority rows (16 bytes each), beside its warps' queues.
 extern "C" int brt_k1_culled_table_bytes_limit(int min_blocks, int* out) {
-  return static_cast<int>(brt::table_bytes_limit(
-      k1_render_kernel<true, true>, kThreads, min_blocks, out));
+  return static_cast<int>(brt::table_bytes_limit(k1_culled_kernel<true>,
+                                                 kThreads, min_blocks, out));
 }
 
 // Launches K1 on `stream`.  Pointers are device pointers: geom [S] float4,
@@ -366,33 +565,49 @@ extern "C" int brt_k1_render(const void* geom, const void* attr, int n_spheres,
                              int table_mode, void* stream) {
   if (n_spheres < 1 || (table_mode != 0 && table_mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<false>(geom, attr, n_spheres, nullptr, nullptr, nullptr, 0, 0,
-                       0, cam, pids, n_lanes, fb, len, nullptr, seed,
-                       sample_base, spp, max_depth, t_min, width, height, 0,
-                       table_mode, stream);
+  return launch(k1_render_kernel<true>, k1_render_kernel<false>, n_spheres,
+                n_lanes, table_mode, stream,
+                static_cast<const float4*>(geom),
+                static_cast<const float4*>(attr), n_spheres,
+                static_cast<const float*>(cam), static_cast<const int*>(pids),
+                n_lanes, static_cast<float*>(fb), static_cast<float*>(len),
+                static_cast<uint32_t>(seed),
+                static_cast<uint32_t>(sample_base), spp, max_depth, t_min,
+                width, height);
 }
 
 // Launches the chunk-culled K1: as brt_k1_render, with geom and attr in the
 // plan's order, bounds [n_chunks] float4 (bx, by, bz, br^2), members [S]
-// int32 (row -> scene index), prio [n_prio] float4 (cx, cy, cz, r^2), chunk
-// >= 1 rows a chunk and n_chunks = ceil(S / chunk); live [n_lanes] float
-// (each lane's live chunks summed over its rounds) or nullptr; max_rounds 0
-// or the rounds after which a lane stops.  table_mode 1 stages S + n_chunks
-// + n_prio rows.
+// int32 (row -> scene index, a permutation) and row_of [S] int32 (its
+// inverse), prio [n_prio] float4 (cx, cy, cz, r^2), chunk >= 1 rows a chunk
+// and n_chunks = ceil(S / chunk); live [n_lanes] float (each lane's live
+// chunks summed over its rounds) or nullptr; max_rounds 0 or the rounds
+// after which a lane stops.  table_mode 1 stages S + n_chunks + n_prio
+// rows.
 extern "C" int brt_k1_render_culled(
     const void* geom, const void* attr, int n_spheres, const void* bounds,
-    const void* members, const void* prio, int n_chunks, int chunk,
-    int n_prio, const void* cam, const void* pids, int n_lanes, void* fb,
-    void* len, void* live, unsigned int seed, unsigned int sample_base,
-    int spp, int max_depth, float t_min, int width, int height,
-    int max_rounds, int table_mode, void* stream) {
+    const void* members, const void* row_of, const void* prio, int n_chunks,
+    int chunk, int n_prio, const void* cam, const void* pids, int n_lanes,
+    void* fb, void* len, void* live, unsigned int seed,
+    unsigned int sample_base, int spp, int max_depth, float t_min, int width,
+    int height, int max_rounds, int table_mode, void* stream) {
   if (n_spheres < 1 || (table_mode != 0 && table_mode != 1) || chunk < 1 ||
-      n_chunks != (n_spheres + chunk - 1) / chunk || n_prio < 0 ||
-      max_rounds < 0 || bounds == nullptr || members == nullptr ||
+      n_chunks != (n_spheres + chunk - 1) / chunk || n_chunks > (1 << 26) ||
+      n_prio < 0 || max_rounds < 0 || bounds == nullptr ||
+      members == nullptr || row_of == nullptr ||
       (n_prio > 0 && prio == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(geom, attr, n_spheres, bounds, members, prio, n_chunks,
-                      chunk, n_prio, cam, pids, n_lanes, fb, len, live, seed,
-                      sample_base, spp, max_depth, t_min, width, height,
-                      max_rounds, table_mode, stream);
+  return launch(k1_culled_kernel<true>, k1_culled_kernel<false>,
+                n_spheres + n_chunks + n_prio, n_lanes, table_mode, stream,
+                static_cast<const float4*>(geom),
+                static_cast<const float4*>(attr), n_spheres,
+                static_cast<const float4*>(bounds),
+                static_cast<const int*>(members),
+                static_cast<const int*>(row_of),
+                static_cast<const float4*>(prio), n_chunks, chunk, n_prio,
+                static_cast<const float*>(cam), static_cast<const int*>(pids),
+                n_lanes, static_cast<float*>(fb), static_cast<float*>(len),
+                static_cast<float*>(live), static_cast<uint32_t>(seed),
+                static_cast<uint32_t>(sample_base), spp, max_depth, t_min,
+                width, height, max_rounds);
 }

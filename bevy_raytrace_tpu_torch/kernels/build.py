@@ -86,12 +86,23 @@ def load_all(names, defines: tuple = ()) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc failed building {name}:\n{stdout}\n{stderr}")
             continue
+        out.with_suffix(".log").write_text(stdout + stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
         BUILD_LOG[_key(name, defines)] = (time.perf_counter() - t0,
                                           stdout + stderr)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: load(name, defines) for name in names}
+
+
+def build_output(name: str, defines: tuple = ()) -> str:
+    """nvcc's output (ptxas's registers, stack frame and spills of each
+    kernel) for the library `load` gives: this process's build, or the one
+    saved beside a library built earlier."""
+    load(name, defines)
+    got = BUILD_LOG.get(_key(name, tuple(defines)))
+    return got[1] if got else library_path(name, tuple(defines)).with_suffix(
+        ".log").read_text()
 
 
 def load(name: str, defines: tuple = ()) -> ctypes.CDLL:

@@ -46,7 +46,9 @@ FORWARD_ROW_BYTES = 16
 # rows) and K4 up to 37,888 (2,368), with 56 registers a thread.  The
 # libraries turn the count into bytes with the occupancy API.
 # K1's culled kernel (rows, chunk bounds and priority rows staged) keeps
-# K1's count: its own threshold is not timed yet.
+# K1's count: its own threshold is not timed yet.  Its warps' pair queues
+# (13,312 bytes of static shared memory a block) are counted by the
+# occupancy API, so its limit is that much lower.
 FORWARD_MIN_BLOCKS = {"k1_render": 7, "k1_render_culled": 7,
                       "k4_sweep_record": 6}
 # Kernel -> (library, its limit query).

@@ -95,11 +95,13 @@ class CullTables(NamedTuple):
 
     bounds: float32 [C, 4], chunk c's bounding sphere (bx, by, bz, br^2);
     members: int32 [S], the scene index of each row (a permutation);
+    row_of: int32 [S], the row of each scene index (members' inverse);
     prio: float32 [K, 4], the priority spheres' (cx, cy, cz, r^2);
     cluster_size: L, chunk c owns rows [c L, min((c + 1) L, S))."""
 
     bounds: torch.Tensor
     members: torch.Tensor
+    row_of: torch.Tensor
     prio: torch.Tensor
     cluster_size: int
 
@@ -115,15 +117,19 @@ def _scene_tables(scene, plan=None):
     With `plan` (a `ClusterPlan` of this scene's sphere count) -> (geom,
     attr, CullTables): the rows gathered into the plan's Morton order
     without its pad slots, the chunks' bounds (bx, by, bz, br^2) and the
-    priority rows from the live geometry, and the row -> scene index map."""
+    priority rows from the live geometry, and the row -> scene index map
+    and its inverse."""
     c, r = scene.centers, scene.radii
     if plan is not None:
         check_plan(plan, scene.count)
         geom, attr = _scene_tables(scene)
         members = plan.on(geom.device)[0][:scene.count]
+        row_of = torch.empty_like(members)
+        row_of[members] = torch.arange(scene.count, device=members.device)
         return (geom[members].contiguous(), attr[members].contiguous(),
                 CullTables(sphere_bounds(c, r, plan),
                            members.to(torch.int32).contiguous(),
+                           row_of.to(torch.int32).contiguous(),
                            priority_rows(c, r, plan), plan.cluster_size))
     if scene.count == 0:
         geom = c.new_tensor([[0.0, 0.0, 0.0, -1.0]])
@@ -334,7 +340,7 @@ def _k1_launcher():
 def _k1_culled_launcher():
     fn = build.load("k1_render").brt_k1_render_culled
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, i32, vp, vp, vp, i32, i32, i32, vp, vp, i32, vp,
+    fn.argtypes = [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, vp, vp, i32, vp,
                    vp, vp, ctypes.c_uint, ctypes.c_uint, i32, i32,
                    ctypes.c_float, i32, i32, i32, i32, vp]
     fn.restype = i32
@@ -366,6 +372,7 @@ def _check_cull(cull, n_spheres, device):
     _check("bounds", cull.bounds, torch.float32,
            (-(-n_spheres // size), 4), device)
     _check("members", cull.members, torch.int32, (n_spheres,), device)
+    _check("row_of", cull.row_of, torch.int32, (n_spheres,), device)
     _check("prio", cull.prio, torch.float32, (None, 4), device)
 
 
@@ -445,8 +452,9 @@ def render_lanes(geom, attr, cam, pids, seed: int, sample_base: int, spp: int,
             err = _k1_culled_launcher()(
                 geom.data_ptr(), attr.data_ptr(), n_spheres,
                 cull.bounds.data_ptr(), cull.members.data_ptr(),
-                cull.prio.data_ptr() if n_prio else 0, n_chunks,
-                cull.cluster_size, n_prio, cam.data_ptr(), pids.data_ptr(),
+                cull.row_of.data_ptr(), cull.prio.data_ptr() if n_prio else 0,
+                n_chunks, cull.cluster_size, n_prio, cam.data_ptr(),
+                pids.data_ptr(),
                 n, fb.data_ptr(), ln.data_ptr(),
                 0 if live is None else live.data_ptr(), seed, sample_base,
                 spp, max_depth, t_min, width, height, max_rounds,

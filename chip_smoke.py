@@ -35,7 +35,9 @@ exit — if any phase fails:
      K1 on the flagship's identity lanes, timed, with its bound from the
      rounds it ran, and render_mxu on 15,000 seeded spheres (K1's global
      table: one launch, counted) against the twin;
- 6b. K1's chunk-culled traversal (cluster size 12): the flagship through
+ 6b. K1's chunk-culled traversal (cluster size 12; k1_culled_kernel, its
+     own entry of the kernels line): `nvcc -Xptxas -v`'s registers, stack
+     frame and spills of each K1 instantiation; the flagship through
      render_mxu_balanced(plan=cluster_scene(scene, 12)) twice, its counts
      set to 0 before and read after (4 culled launches on the staged
      table), bit for bit phase 5's dense frame, both timed; one 16,384-pixel
@@ -43,10 +45,11 @@ exit — if any phase fails:
      culled kernel on those lanes against the twin (the kernels line's
      culled check, its bound counted from the live chunks it reported);
      culled against dense K1 on the flagship's identity lanes, timed, with
-     the live chunks a round and the culled bound; the reference frame
-     (bit for bit phase 4a's dense launch) and 15,000 seeded spheres at
-     320x240x2, depth 3 (device-memory tables), culled against dense, bit
-     for bit, timed; `tools.livechunks` at cluster sizes 12 and 64;
+     the live chunks a round and the culled bound and its share; the
+     reference frame (bit for bit phase 4a's dense launch) and 15,000
+     seeded spheres at 320x240x2, depth 3 (device-memory tables), culled
+     against dense, bit for bit, timed; `tools.livechunks` at cluster
+     sizes 12 and 64;
   7. build: K2 (k2_record), K3 (k3_replay_grad) and K4 (k4_sweep_record),
      one nvcc each, started together, timed, with ptxas registers and spills
      of every instantiation;
@@ -441,6 +444,37 @@ def sha256(*tensors):
     for t in tensors:
         h.update(t.detach().cpu().contiguous().numpy())
     return h.hexdigest()[:16]
+
+
+def ptxas_summary(text):
+    """{kernel<template args>: ptxas's registers, stack frame, spill stores
+    and loads, static shared memory} from an `nvcc -Xptxas -v` log."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?\d+(k\w+?_kernel)I(\w+?)EEEv",
+                      line)
+        if m:
+            args = ",".join("true" if b == "1" else "false"
+                            for b in re.findall(r"Lb([01])E", m.group(2) + "E"))
+            name = f"{m.group(1)}<{args}>"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m.group(1)),
+                             smem=int(smem.group(1)) if smem else 0)
+    return out
 
 
 def recovery_phase(dev, smi, cli_problem):
@@ -2225,10 +2259,15 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
     from bevy_raytrace_tpu_torch.profile_grad import random_scene
     from bevy_raytrace_tpu_torch.tools import livechunks
 
+    from bevy_raytrace_tpu_torch.kernels import build
+
     flag_scene, flag_cam, flag_cfg, flag, flag_s, flag_ms = flagship
     ref_scene, ref_cam, ref_cfg, ref_fb, ref_ln = reference
     size = 12
-    out = {"cluster_size": size}
+    out = {"cluster_size": size,
+           "ptxas": ptxas_summary(build.build_output("k1_render"))}
+    for name, props in out["ptxas"].items():
+        log(f"[culled] ptxas {name}: {props}")
 
     def counts():
         return (k1.render_lanes.launches, k1.render_lanes.launches_global,
@@ -2295,6 +2334,7 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
         "plain_ms": plain_ms, "rounds": s_rounds, "live_chunks": s_live,
         **culled_bound(flag_scene.count, flag_plan.n_clusters, size,
                        len(flag_plan.prio), 16384, spp, s_rounds, s_live)}
+    check_entry["bound_share"] = check_entry["bound_ms"] / stripe_ms
     check(0.0 < check_entry["bound_ms"] <= stripe_ms,
           f"the culled check is faster than its bound: {check_entry}")
     del fb_t, ln_t, fb_k
@@ -2314,6 +2354,7 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
                        len(flag_plan.prio), flag_cfg.num_pixels, spp,
                        rounds, live)}
     b = out["flagship_identity"]["bound_ms"]
+    out["flagship_identity"]["bound_share"] = b / culled_ms
     log(f"[culled] flagship K1 on identity lanes: culled {culled_ms:.3f} ms "
         f"against dense {flag_ms:.3f} ms ({flag_ms / culled_ms:.3f}x); "
         f"{live / rounds:.3f} of {flag_plan.n_clusters} chunks live a round; "
@@ -2616,7 +2657,7 @@ def main() -> int:
     entries = [
         kernel_entry("k1_render", csrc + "k1_render.cu",
                      "bevy_raytrace_tpu/kernels/mxu_render.py:99", launches,
-                     [k1_check, k1_culled_check]),
+                     [k1_check]),
         kernel_entry("k2_record", csrc + "k2_record.cu",
                      "bevy_raytrace_tpu/kernels/pallas_render.py:123",
                      grad_launches["k2"], checks["k2"]),
@@ -2642,6 +2683,18 @@ def main() -> int:
     entries[3]["launches_by_mode"] = shard_launches["k4_modes"]
     entries[0]["flagship_frame"] = k1_flagship
     entries[0]["culled"] = k1_culled
+    # The culled traversal is a kernel of its own (k1_culled_kernel, the
+    # TPU kernel's n_cull > 0 branch), launched on phase 6b's leg.
+    culled_entry = kernel_entry(
+        "k1_render_culled", csrc + "k1_render.cu",
+        "bevy_raytrace_tpu/kernels/mxu_render.py:364", k1_modes["culled"],
+        [k1_culled_check])
+    culled_entry["bound_share"] = k1_culled_check["bound_share"]
+    culled_entry["flagship_identity"] = {
+        k: k1_culled["flagship_identity"][k]
+        for k in ("ms", "dense_ms", "bound_ms", "bound_share",
+                  "live_chunks_per_round")}
+    culled_entry["ptxas"] = k1_culled["ptxas"]
     for entry in (entries[0], entries[3]):
         check(all(v > 0 for v in entry["launches_by_mode"].values()),
               f"a {entry['name']} table mode was launched on no path: "
@@ -2652,7 +2705,7 @@ def main() -> int:
     check(all(v > 0 for v in grad_launches["k3_modes"].values()),
           f"a K3 table mode was launched on no path: "
           f"{grad_launches['k3_modes']}")
-    entries += tool_entries
+    entries += [culled_entry] + tool_entries
     for entry in entries:
         check(entry["launches"] > 0 and 0.0 < entry["bound_ms"]
               <= entry["ms"],

@@ -249,3 +249,21 @@ def test_build_variants_get_their_own_library():
     assert probe != plain and probe.parent == plain.parent
     assert "-DBRT_K3_TABLE_ADD=0" in kbuild._flags(name, ("BRT_K3_TABLE_ADD=0",))
     assert kbuild._key(name, ()) == name
+
+
+def test_build_output_of_a_cached_library(tmp_path, monkeypatch):
+    """build_output gives nvcc's output (ptxas's registers, stack frame and
+    spills) of this process's build, else the log saved beside a library
+    that an earlier process built."""
+    from bevy_raytrace_tpu_torch.kernels import build as kbuild
+
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kbuild, "load", lambda name, defines=(): None)
+    monkeypatch.setattr(kbuild, "BUILD_LOG", {})
+    saved = "ptxas info    : Used 64 registers, used 1 barriers"
+    kbuild.library_path("k1_render").with_suffix(".log").write_text(saved)
+    assert kbuild.build_output("k1_render") == saved
+    kbuild.BUILD_LOG["k1_render"] = (2.5, "this process's build")
+    assert kbuild.build_output("k1_render") == "this process's build"
+    with pytest.raises(FileNotFoundError):
+        kbuild.build_output("k1_render", ("BRT_OTHER=1",))

@@ -231,3 +231,37 @@ def test_wrapper_refuses_a_plan_or_operands_that_do_not_fit():
         k1.render_lanes(*args, cull=cull, max_rounds=-1)
     fb, ln = k1.render_lanes(*args, cull=cull)
     assert fb.shape == (pids.shape[0], 3) and ln.shape == pids.shape
+
+
+def test_row_of_inverts_the_reference_plans_members(reference_culled):
+    """The culled operands' row_of (scene index -> row, which the CUDA
+    kernel reads to turn a winning (t, scene index) key into its row) is
+    the inverse of members, the reference plan's Morton order without its
+    pad slots; the row it names holds that scene index's sphere."""
+    jscene, _, jplan, _, _ = reference_culled
+    scene = scene_from_reference(jscene)
+    n = scene.count
+    geom, attr, cull = k1._scene_tables(scene, cluster_scene(scene, 8))
+    perm = np.asarray(jplan.perm)
+    assert np.asarray(jplan.member_mask).reshape(-1)[:n].all()
+    np.testing.assert_array_equal(cull.members.numpy(), perm[:n])
+    assert cull.row_of.dtype == torch.int32 and cull.row_of.is_contiguous()
+    every = torch.arange(n, dtype=torch.int32)
+    assert torch.equal(cull.row_of[cull.members.long()], every)
+    assert torch.equal(cull.members[cull.row_of.long()], every)
+    scene_geom, scene_attr = k1._scene_tables(scene)
+    assert torch.equal(geom[cull.row_of.long()], scene_geom)
+    assert torch.equal(attr[cull.row_of.long()], scene_attr)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_wrapper_refuses_a_row_of_that_does_not_fit(bad):
+    scene, cam, cfg = _scene("rtiow_final")
+    geom, attr, cull = k1._scene_tables(scene, cluster_scene(scene, 8))
+    pids = torch.arange(k1.lane_pad(cfg.num_pixels), dtype=torch.int32)
+    row_of = (cull.row_of.long() if bad == "dtype"
+              else cull.row_of[1:].contiguous())
+    with pytest.raises((ValueError, TypeError), match="row_of"):
+        k1.render_lanes(geom, attr, cam.pack(), pids, frame_seed(cfg, 0), 0,
+                        1, 2, cfg.t_min, cfg.width, cfg.height,
+                        cull=cull._replace(row_of=row_of))
