@@ -320,7 +320,8 @@ __device__ __forceinline__ bool chunk_live(const float4 b, const float (&o)[3],
                                            const float (&d)[3], float t_min,
                                            float t_ub) {
   const float bx = o[0] - b.x, by = o[1] - b.y, bz = o[2] - b.z;
-  const float hb = __fmaf_rn(bx, d[0], __fmaf_rn(by, d[1], __fmul_rn(bz, d[2])));
+  const float hb =
+      __fmaf_rn(bx, d[0], __fmaf_rn(by, d[1], __fmul_rn(bz, d[2])));
   const float ts = fminf(fmaxf(-hb, t_min), t_ub);
   const float vx = __fmaf_rn(ts, d[0], bx), vy = __fmaf_rn(ts, d[1], by),
               vz = __fmaf_rn(ts, d[2], bz);
@@ -445,8 +446,8 @@ __global__ void __launch_bounds__(kThreads, kCulledBlocks)
   int prev = -1;  // the row of the lane's last winner
 
   for (;;) {
-    const bool on =
-        s < spp && !(max_rounds > 0 && rounds >= static_cast<float>(max_rounds));
+    const bool on = s < spp && !(max_rounds > 0 &&
+                                 rounds >= static_cast<float>(max_rounds));
     if (!__any_sync(kAll, on)) break;
     float t_ub = 0.f;
     if (on) {

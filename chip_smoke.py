@@ -453,8 +453,8 @@ def ptxas_summary(text):
 
     out, name = {}, None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?\d+(k\w+?_kernel)I(\w+?)EEEv",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'_Z\w*?\d+(k\w+?_kernel)I(\w+?)EEEv", line)
         if m:
             args = ",".join("true" if b == "1" else "false"
                             for b in re.findall(r"Lb([01])E", m.group(2) + "E"))
