@@ -49,10 +49,14 @@
 //     arithmetic, so t_ub never lands below the winner's t;
 //   * tests its ray against every chunk's bounding sphere: a chunk is live
 //     when the point of [t_min, t_ub] nearest the bound's center lies
-//     inside it (the chord meets the segment; no root taken);
+//     inside it, widened by a slack for the member test's own rounding that
+//     grows with the ray's squared distance to the bound (chunk_live; no
+//     root taken);
 //   * gets the (t, scene index)-least valid root among the members of its
 //     live chunks: the dense sweep's winner, tie rule included, since the
-//     bounds are conservative (clusters.py widens every radius).
+//     bound test is conservative against the member test (clusters.py
+//     widens every radius; the slack covers the grazing hits the member
+//     test's rounding takes just outside a small sphere).
 // So the image and len are the dense kernel's bit for bit.  The member work
 // is shared by the warp: the lanes vote on each chunk, their (chunk, lane)
 // pairs go into a per-warp queue in shared memory, the warp's 32 threads
@@ -126,6 +130,11 @@ constexpr int kQueue = 512;
 constexpr int kCulledBlocks = 8;
 // A lane's nearest-hit key before any pair of the round found a hit.
 constexpr unsigned long long kNoHit = ~0ull;
+// The bound test's slack for the member test's rounding, in units of
+// u = 2^-24 (chunk_live derives it); kernels/render_lanes.py::CULL_SLACK
+// mirrors it for the plain twin, and a CPU test holds the two equal.
+#define BRT_K1_CULL_SLACK 32
+constexpr float kSlack = BRT_K1_CULL_SLACK * 0x1p-24f;
 
 // A table row: from shared memory (SMEM, staged once a block) or through
 // the read-only cache.
@@ -308,14 +317,46 @@ __device__ __forceinline__ float upper_bound(
 
 // Whether the ray may meet a member of the chunk bounded by b = (bx, by,
 // bz, br^2) in [t_min, t_ub]: whether the point of the segment nearest the
-// bound's center, at t* = -hb clamped to [t_min, t_ub], lies inside it.  In
-// exact arithmetic this is the chord test (far root >= t_min and near root
-// <= t_ub), closed at both ends, with no root taken.  Its rounding moves
-// |v|^2 by about 6 u br (|oc| + t*) at the bound's surface (u = 2^-24);
-// clusters.py widens every radius by 1.0001 x + 1e-4, which adds at least
-// 2e-4 br (1 + br) to br^2, so the test stays conservative while |oc| + t*
-// is below some 500 (1 + br).  An error in t* moves v along the ray, where
-// |v|^2 changes by its square: nothing against that margin.
+// bound's center, v = ob + t* d at t* = -hb clamped to [t_min, t_ub],
+// passes |v|^2 <= br^2 + kSlack (|v|^2 + hb^2).  For a unit d, |v|^2 + hb^2
+// = |ob|^2 + (t* + hb)^2 >= |ob|^2: the slack grows with the ray's squared
+// distance to the bound, for two operations more.  Without it this is the
+// chord test (far root >= t_min, near root <= t_ub), closed at both ends,
+// with no root taken.
+//
+// Why the slack (u = 2^-24; for a member (c, r^2) of the chunk, X = |oc|^2
+// of the member test's rounded oc, h = oc . d exactly; |d|^2 = 1 + e with
+// |e| <= 13 u from rsqrtf's 2 ulp and the normalization's rounding).  The
+// member test (brt::sweep_root, sweep_nearest) takes a hit where its
+// rounded disc = hb^2 - (|oc|^2 - r^2) is > 0, fma-contracted or not.  hb
+// errs by at most 3 u |oc|, so hb^2 by 6 u X; hb*hb's own rounding (where
+// not fused) by u X; |oc|^2 by 3 u X; the subtraction of r^2 by u X (or
+// u r^2); the last rounding keeps disc's sign.  So a hit has Q = |oc|^2 -
+// h^2 < r^2 + 11 u X: a grazing "hit" up to that far outside the sphere in
+// squared miss distance, from a small sphere seen from afar (X large),
+// which a bound test that rounds accurately would reject.
+// At cluster size 1 the bound is its member: b = c bit for bit, so ob = oc
+// bit for bit, and fl(br^2) >= fl(r^2) (1 + 2e-4) by clusters.py's margin.
+//   * t* = -hb unclamped: |v|^2 = Q + (hb - h)^2 + e t*^2 < r^2 + 24 u X.
+//   * t* clamped: a member root t_f beyond t_ub cannot win (t_ub is a valid
+//     root by the same arithmetic, brt::sweep_root), so t_f lies in (t_min,
+//     t_ub] and t* between -hb and t_f; |v(t)|^2 is convex in t, so
+//     |v(t*)|^2 <= max(|v(-hb)|^2, |v(t_f)|^2), and |v(t_f)|^2 = Q + (t_f +
+//     h)^2 + e t_f^2, (t_f + h)^2 being the rounded root's square (disc (1 +
+//     11 u)) plus hb's and t_f's rounding: < r^2 + 26.1 u X.
+//   * |v|^2's own rounding is relative, (1 + 5 u) |v|^2, and the terms in
+//     r^2 above add up to some 100 u r^2: all inside the margin's 2e-4 r^2.
+// The slack's operand is >= X (1 - 25 u), so kSlack = 32 u makes the test
+// conservative at cluster size 1 with 22% to spare; grazing rays aimed at
+// 2,000 seeded spheres needed under 6 u X (tests/test_torch_k1_cull.py).
+// At L > 1 the bound's center is the members' centroid: the same shell of
+// 26.1 u X around a member of radius r that touches the bound's rim asks
+// about (br / r) 26.1 u X of br^2, where at L = 1 it asks 26.1 u X.  The
+// slack and the margin's 2e-4 br (1 + br) cover that while br / r is
+// small: rays grazing members on their rim side at L = 2 and 4 keep their
+// chunks (tests/test_torch_k1_cull.py; without the slack some do not), and
+// no lane differed from dense on the card at L = 2 to 64 (PERF.md, PR 16).
+// For a member far smaller than its chunk that is measured, not proven.
 __device__ __forceinline__ bool chunk_live(const float4 b, const float (&o)[3],
                                            const float (&d)[3], float t_min,
                                            float t_ub) {
@@ -325,7 +366,8 @@ __device__ __forceinline__ bool chunk_live(const float4 b, const float (&o)[3],
   const float ts = fminf(fmaxf(-hb, t_min), t_ub);
   const float vx = __fmaf_rn(ts, d[0], bx), vy = __fmaf_rn(ts, d[1], by),
               vz = __fmaf_rn(ts, d[2], bz);
-  return __fmaf_rn(vx, vx, __fmaf_rn(vy, vy, __fmul_rn(vz, vz))) <= b.w;
+  const float v2 = __fmaf_rn(vx, vx, __fmaf_rn(vy, vy, __fmul_rn(vz, vz)));
+  return v2 <= __fmaf_rn(kSlack, __fmaf_rn(hb, hb, v2), b.w);
 }
 
 // The warp sweeps the first `count` pairs of q in strides of 32: a thread

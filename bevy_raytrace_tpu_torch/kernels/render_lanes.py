@@ -22,7 +22,9 @@ gathered into the plan's Morton order, and each round a lane takes an upper
 bound t_ub on its nearest hit from the plan's priority spheres and its own
 previous winner, tests its ray against every chunk's bounding sphere, and
 sweeps the members of the chunks that may hold a hit before t_ub only.  The
-bounds are conservative and a tie goes to the lower SCENE index, so the
+bound test is conservative against the member test's own rounding (a slack
+of `CULL_SLACK` u times the ray's squared distance to the bound, derived at
+the kernel's `chunk_live`) and a tie goes to the lower SCENE index, so the
 image and the cost map equal the dense sweep's bit for bit.  Culled launches
 are counted apart too (`render_lanes.launches_culled`); on the card a
 culled call launches the culled kernel or raises, never the dense one.
@@ -88,6 +90,9 @@ _PLAIN_WORKSPACE = {"cpu": 1 << 22, "cuda": 1 << 26}
 # t_ub of a lane that no priority sphere or previous winner bounds (the
 # reference's 1e30).
 _NO_BOUND = 1e30
+# The culled bound test's slack in units of u = 2^-24: csrc/k1_render.cu's
+# BRT_K1_CULL_SLACK, which a test holds equal to this.
+CULL_SLACK = 32
 
 
 class CullTables(NamedTuple):
@@ -200,6 +205,22 @@ def _plain_root(gx, gy, gz, gr2, ox, oy, oz, dx, dy, dz, t_min):
     return torch.where(rn > t_min, rn, sq - hb)
 
 
+def _chunk_live(bx, by, bz, br2, ox, oy, oz, dx, dy, dz, t_min, t_ub,
+                slack=CULL_SLACK):
+    """Whether each ray (o, d) may meet a member of the chunk bounded by (bx,
+    by, bz, br2) in [t_min, t_ub], on broadcast planes: the culled kernel's
+    `chunk_live` in tensor ops (each operation rounded, no fma).  The point
+    v of the segment nearest the bound's center passes when |v|^2 <= br^2 +
+    slack u (|v|^2 + hb^2), u = 2^-24: the slack covers the grazing hits the
+    member test's rounding takes just outside a sphere."""
+    bocx, bocy, bocz = ox - bx, oy - by, oz - bz
+    bhb = bocz * dz + bocy * dy + bocx * dx
+    ts = torch.minimum(torch.clamp(-bhb, min=t_min), t_ub)
+    vx, vy, vz = ts * dx + bocx, ts * dy + bocy, ts * dz + bocz
+    v2 = vz * vz + vy * vy + vx * vx
+    return v2 <= slack * 2.0 ** -24 * (bhb * bhb + v2) + br2
+
+
 def _live_chunks(bounds, prio, geom, prev, ox, oy, oz, dx, dy, dz, t_min):
     """[n, C] bool: the chunks whose bound each ray may hit before its t_ub
     (the nearest valid root among the priority rows and the row `prev` of
@@ -211,12 +232,9 @@ def _live_chunks(bounds, prio, geom, prev, ox, oy, oz, dx, dy, dz, t_min):
     for g in rows:
         t = _plain_root(*g.unbind(-1), ox, oy, oz, dx, dy, dz, t_min)
         t_ub = torch.where((t > t_min) & (t < t_ub), t, t_ub)
-    bx, by, bz, br2 = bounds.T.contiguous().unbind(0)
-    bocx, bocy, bocz = ox[:, None] - bx, oy[:, None] - by, oz[:, None] - bz
-    bhb = bocx * dx[:, None] + bocy * dy[:, None] + bocz * dz[:, None]
-    bcq = (bocx * bocx + bocy * bocy + bocz * bocz) - br2
-    bsq = torch.sqrt(bhb * bhb - bcq)  # NaN on a miss of the bound
-    return ((bsq - bhb) > t_min) & ((-bhb - bsq) <= t_ub[:, None])
+    return _chunk_live(*bounds.T.contiguous().unbind(0), ox[:, None],
+                       oy[:, None], oz[:, None], dx[:, None], dy[:, None],
+                       dz[:, None], t_min, t_ub[:, None])
 
 
 def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,

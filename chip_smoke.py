@@ -48,7 +48,10 @@ exit — if any phase fails:
      the live chunks a round and the culled bound and its share; the
      reference frame (bit for bit phase 4a's dense launch) and 15,000
      seeded spheres at 320x240x2, depth 3 (device-memory tables), culled
-     against dense, bit for bit, timed; `tools.livechunks` at cluster
+     against dense, bit for bit, timed; 2,000 seeded spheres at 96x64x4,
+     depth 8, planned at cluster size 1 (chunks of one small sphere, where
+     the bound test's slack must cover the member test's grazing hits),
+     culled against dense, bit for bit; `tools.livechunks` at cluster
      sizes 12 and 64;
   7. build: K2 (k2_record), K3 (k3_replay_grad) and K4 (k4_sweep_record),
      one nvcc each, started together, timed, with ptxas registers and spills
@@ -2407,6 +2410,32 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
     check(same and global_launches == 2,
           f"15000 spheres: culled vs dense {same}, global launches "
           f"{global_launches}")
+    del fb_c, ln_c, fb_d, ln_d
+
+    # Cluster size 1: chunks of one small sphere, grazed from bounces far
+    # away, where the member test's rounding takes hits just outside a
+    # sphere that only the bound test's slack keeps live.
+    one_cfg = flag_cfg.replace(width=96, height=64, samples_per_pixel=4,
+                               max_depth=8)
+    one = random_scene(2000, seed=3)
+    one_cam = scenes.rtiow_final_camera(one_cfg.aspect)
+    one_pids = torch.arange(k1.lane_pad(one_cfg.num_pixels),
+                            dtype=torch.int32, device=dev)
+    args, cull = culled_args(one, one_cam, one_cfg, one_pids,
+                             cluster_scene(one, 1))
+    before = counts()
+    fb_c, ln_c = k1.render_lanes(*args, cull=cull)
+    culled_launches = counts()[2] - before[2]
+    fb_d, ln_d = k1.render_lanes(*lane_args(one, one_cam, one_cfg, one_pids))
+    lanes = int(((fb_c != fb_d).any(1) | (ln_c != ln_d)).sum())
+    out["seeded_2000_cluster_size_1"] = {"differing_lanes": lanes,
+                                         "culled_launches": culled_launches}
+    log(f"[culled] 2000 seeded spheres at 96x64x4 depth 8, cluster size 1 "
+        f"({one.count} chunks): {culled_launches} culled launch; lanes that "
+        f"differ from the dense launch: {lanes}")
+    check(lanes == 0 and culled_launches == 1,
+          f"cluster size 1: {lanes} lanes differ from dense, "
+          f"{culled_launches} culled launches")
 
     # tools.livechunks at cluster sizes 12 and 64, 32 spp, every lane to
     # its end (so the dense launch is timed beside the culled one).

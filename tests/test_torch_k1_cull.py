@@ -8,6 +8,8 @@ Bounds: against the reference, the bound of test_torch_k1.py's
 `test_twin_matches_tpu_kernel` for rtiow_final (parity.COMPILED; len off on
 at most as many pixels as the image bound allows).  Culled against dense:
 bit for bit, image and len; the cull only drops roots that cannot win.
+The chunk test against the member test: every grazing ray the member
+test's expression calls a hit keeps its chunk live, exactly.
 """
 
 import dataclasses
@@ -29,8 +31,9 @@ from bevy_raytrace_tpu_torch.interop import (
 )
 from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
 from bevy_raytrace_tpu_torch.kernels.clusters import ClusterPlan, cluster_scene
-from bevy_raytrace_tpu_torch.kernels.common import _plain_camera
+from bevy_raytrace_tpu_torch.kernels.common import _plain_camera, _rsqrt_guard
 from bevy_raytrace_tpu_torch.parity import COMPILED, compare
+from bevy_raytrace_tpu_torch.profile_grad import random_scene
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 torch.set_num_threads(2)
@@ -74,6 +77,9 @@ def _scene(name):
     if name == "config1":
         scene, _ = tsc.baseline_config1_scene()
         return scene, tsc.baseline_config1_camera(cfg.aspect), cfg
+    if name == "seeded_2000":
+        return random_scene(2000, seed=3), tsc.rtiow_final_camera(cfg.aspect
+                                                                   ), cfg
     scene, _ = tsc.rtiow_final_scene(seed=3, grid=3)
     return scene, tsc.rtiow_final_camera(cfg.aspect), cfg
 
@@ -86,11 +92,12 @@ def _assert_culled_is_dense(scene, cam, cfg, plan):
     return dense
 
 
-@pytest.mark.parametrize("name", ["config1", "rtiow_final"])
+@pytest.mark.parametrize("name", ["config1", "rtiow_final", "seeded_2000"])
 @pytest.mark.parametrize("size", [1, 8, 12, "all"])
 def test_culled_twin_bitwise_dense(name, size):
     """Cluster sizes 1, 8, 12 and one chunk holding every sphere, on
-    config1's 2 spheres (fewer than a chunk) and on rtiow grid 3."""
+    config1's 2 spheres (fewer than a chunk), rtiow grid 3 and 2,000
+    seeded small spheres."""
     scene, cam, cfg = _scene(name)
     plan = cluster_scene(scene, scene.count if size == "all" else size)
     assert plan.n_clusters == -(-scene.count // plan.cluster_size)
@@ -176,9 +183,11 @@ def test_live_count_lies_within_the_chunks_of_each_round():
 
 
 def test_live_count_of_one_chunk_is_the_rays_that_meet_its_bound():
-    """Config2's four small spheres, one chunk, one bounce: a
-    lane's count is how many of its camera rays meet the chunk's bounding
-    sphere (far root > t_min), checked in float64."""
+    """Config2's four small spheres, one chunk, one bounce: a lane's count
+    is how many of its camera rays pass the chunk test, checked in float64:
+    the point of [t_min, inf) nearest the bound's center within br^2 plus
+    the slack.  (A clamp at t_ub changes nothing here: t_ub is the root of
+    a sphere inside the bound, so that point passes too.)"""
     base, _ = tsc.baseline_config2_scene()
     keep = base.radii < 10.0  # drop the ground: a bound the camera is out of
     scene = dataclasses.replace(base, centers=base.centers[keep],
@@ -195,9 +204,11 @@ def test_live_count_of_one_chunk_is_the_rays_that_meet_its_bound():
         ox, oy, oz, dx, dy, dz = (v.double() for v in _plain_camera(
             cam.pack(), pid, s, frame_seed(cfg, 0), cfg.width, cfg.height))
         oc = torch.stack([ox - b[0], oy - b[1], oz - b[2]])
-        hb = oc[0] * dx + oc[1] * dy + oc[2] * dz
-        far = torch.sqrt(hb * hb - (oc * oc).sum(0) + b[3]) - hb
-        meets += (far > cfg.t_min).float()
+        d = torch.stack([dx, dy, dz])
+        hb = (oc * d).sum(0)
+        v2 = ((oc + torch.clamp(-hb, min=cfg.t_min) * d) ** 2).sum(0)
+        slack = k1.CULL_SLACK * 2.0 ** -24 * (v2 + hb * hb)
+        meets += (v2 <= b[3] + slack).float()
     assert torch.equal(ln, torch.full_like(ln, cfg.samples_per_pixel))
     assert torch.equal(live, meets)
     assert 0 < float(live.sum()) < float(ln.sum())  # some miss, some meet
@@ -265,3 +276,91 @@ def test_wrapper_refuses_a_row_of_that_does_not_fit(bad):
         k1.render_lanes(geom, attr, cam.pack(), pids, frame_seed(cfg, 0), 0,
                         1, 2, cfg.t_min, cfg.width, cfg.height,
                         cull=cull._replace(row_of=row_of))
+
+
+def test_cull_slack_is_the_kernels():
+    """The twin's slack is the CUDA kernel's BRT_K1_CULL_SLACK."""
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).parents[1] / "csrc" / "k1_render.cu").read_text()
+    (value,) = re.findall(r"^#define BRT_K1_CULL_SLACK (\d+)$", src, re.M)
+    assert int(value) == k1.CULL_SLACK
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32, as the card's fma: the product is
+    exact in float64 (its rounding to float64 then float32 can differ from
+    one rounding only at a float64 half-way point)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _member_hit(g, o, d, arith):
+    """The member test's verdict (rounded disc > 0) for each ray and its own
+    sphere row g = (cx, cy, cz, r^2): the twin's expression (`_plain_root`,
+    every operation rounded), or the CUDA sweep's contracted to fmas."""
+    if arith == "twin":
+        t = k1._plain_root(*g.unbind(1), *o.unbind(1), *d.unbind(1), 1e-3)
+        return ~torch.isnan(t)
+    oc = o - g[:, :3]
+    hb = _fma(oc[:, 2], d[:, 2], _fma(oc[:, 1], d[:, 1], oc[:, 0] * d[:, 0]))
+    cq = _fma(oc[:, 2], oc[:, 2], _fma(oc[:, 1], oc[:, 1],
+                                       oc[:, 0] * oc[:, 0])) - g[:, 3]
+    return _fma(hb, hb, -cq) > 0
+
+
+def _chunk_live_fma(b, o, d, t_min, slack):
+    """csrc/k1_render.cu's chunk_live with its fmas (t_ub none)."""
+    ob = o - b[:, :3]
+    hb = _fma(ob[:, 0], d[:, 0], _fma(ob[:, 1], d[:, 1], ob[:, 2] * d[:, 2]))
+    ts = torch.clamp(-hb, min=t_min)
+    v = [_fma(ts, d[:, i], ob[:, i]) for i in range(3)]
+    v2 = _fma(v[0], v[0], _fma(v[1], v[1], v[2] * v[2]))
+    return v2 <= _fma(torch.full_like(v2, slack * 2.0 ** -24),
+                      _fma(hb, hb, v2), b[:, 3])
+
+
+@pytest.mark.parametrize("arith", ["twin", "fma"])
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_grazing_hits_keep_their_chunk_live(arith, size):
+    """2,000 seeded spheres at cluster size 1, 2 and 4; from (13, 2, 3), 400
+    rays at each small sphere, aimed past its center at r (1 + delta),
+    delta in [0, 3e-3], normalized in float32 as the renderer does: on a
+    random side at size 1, on the side away from the bound's center (where
+    the sphere touches its chunk's bound) above.  The member test's
+    rounding calls some of these misses hits; every ray it calls a hit must
+    have its sphere's chunk live under the chunk test, in the twin's
+    arithmetic (every operation rounded) and in the kernel's (fmas).
+    Without the slack (slack 0, the parent's closest-point test) the chunk
+    test culls some of them: the rays reach the fault the slack repairs."""
+    scene = random_scene(2000, seed=3)
+    geom, _, cull = k1._scene_tables(scene, cluster_scene(scene, size))
+    rng = np.random.default_rng(0)
+    small = np.flatnonzero(geom[:, 3].numpy() < 1.0)
+    row = np.repeat(small, 400)
+    b = cull.bounds[row // size]  # chunk c holds rows [c L, (c + 1) L)
+    c = geom[row, :3].double().numpy()
+    r = np.sqrt(geom[row, 3].double().numpy())
+    origin = np.array([13.0, 2.0, 3.0])
+    w = c - origin
+    w /= np.linalg.norm(w, axis=1)[:, None]
+    side = rng.normal(size=c.shape)
+    if size > 1:
+        side = c - b[:, :3].double().numpy() + 1e-3 * side
+    side -= (side * w).sum(1)[:, None] * w
+    side /= np.linalg.norm(side, axis=1)[:, None]
+    aim = c + side * (r * (1 + rng.uniform(0.0, 3e-3, r.shape)))[:, None]
+    t = torch.from_numpy(aim - origin).float()
+    d = t * _rsqrt_guard((t * t).sum(1, keepdim=True))
+    o = torch.tensor(origin, dtype=torch.float32).expand_as(d)
+    hit = _member_hit(geom[row], o, d, arith)
+
+    def live(slack):
+        if arith == "fma":
+            return _chunk_live_fma(b, o, d, 1e-3, slack)
+        return k1._chunk_live(*b.unbind(1), *o.unbind(1), *d.unbind(1),
+                              1e-3, torch.tensor(k1._NO_BOUND), slack=slack)
+
+    assert int(hit.sum()) > 10_000  # grazing hits, most just outside
+    assert int((hit & ~live(0)).sum()) >= 10  # the fault, without the slack
+    assert int((hit & ~live(k1.CULL_SLACK)).sum()) == 0
