@@ -347,15 +347,17 @@ __device__ __forceinline__ float upper_bound(
 //   * |v|^2's own rounding is relative, (1 + 5 u) |v|^2, and the terms in
 //     r^2 above add up to some 100 u r^2: all inside the margin's 2e-4 r^2.
 // The slack's operand is >= X (1 - 25 u), so kSlack = 32 u makes the test
-// conservative at cluster size 1 with 22% to spare; grazing rays aimed at
-// 2,000 seeded spheres needed under 6 u X (tests/test_torch_k1_cull.py).
+// conservative at cluster size 1 with 22% to spare; on grazing rays aimed
+// at 2,000 seeded spheres 8 u already keeps every hit's chunk live and no
+// slack does not (tests/test_torch_k1_cull.py).
 // At L > 1 the bound's center is the members' centroid: the same shell of
 // 26.1 u X around a member of radius r that touches the bound's rim asks
 // about (br / r) 26.1 u X of br^2, where at L = 1 it asks 26.1 u X.  The
 // slack and the margin's 2e-4 br (1 + br) cover that while br / r is
 // small: rays grazing members on their rim side at L = 2 and 4 keep their
 // chunks (tests/test_torch_k1_cull.py; without the slack some do not), and
-// no lane differed from dense on the card at L = 2 to 64 (PERF.md, PR 16).
+// no lane differed from dense on the card at L = 2, 3, 4, 6, 8, 12, 24 and
+// 64 (PERF.md, section 6).
 // For a member far smaller than its chunk that is measured, not proven.
 __device__ __forceinline__ bool chunk_live(const float4 b, const float (&o)[3],
                                            const float (&d)[3], float t_min,

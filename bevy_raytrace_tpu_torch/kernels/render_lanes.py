@@ -45,6 +45,9 @@ Deliberate divergences from the reference:
     even where two spheres of different chunks tie exactly; its chunk
     bounds store br^2 squared directly (`clusters.sphere_bounds`), and pad
     slots are skipped rather than swept as duplicates;
+  * the culled bound test carries a slack for the member test's rounding
+    (`CULL_SLACK`), which the reference's has not, so culled equals dense
+    at every cluster size, 1 included;
   * no 2^24 limit on lanes or samples (counters are integers, not f32);
   * the TPU tiling options (tile_rows, v_planes, sphere_chunk, round_unroll,
     debug probes) and `track_len` do not exist: the path-length count costs
@@ -205,20 +208,19 @@ def _plain_root(gx, gy, gz, gr2, ox, oy, oz, dx, dy, dz, t_min):
     return torch.where(rn > t_min, rn, sq - hb)
 
 
-def _chunk_live(bx, by, bz, br2, ox, oy, oz, dx, dy, dz, t_min, t_ub,
-                slack=CULL_SLACK):
+def _chunk_live(bx, by, bz, br2, ox, oy, oz, dx, dy, dz, t_min, t_ub):
     """Whether each ray (o, d) may meet a member of the chunk bounded by (bx,
     by, bz, br2) in [t_min, t_ub], on broadcast planes: the culled kernel's
     `chunk_live` in tensor ops (each operation rounded, no fma).  The point
     v of the segment nearest the bound's center passes when |v|^2 <= br^2 +
-    slack u (|v|^2 + hb^2), u = 2^-24: the slack covers the grazing hits the
-    member test's rounding takes just outside a sphere."""
+    CULL_SLACK u (|v|^2 + hb^2), u = 2^-24: the slack covers the grazing
+    hits the member test's rounding takes just outside a sphere."""
     bocx, bocy, bocz = ox - bx, oy - by, oz - bz
     bhb = bocz * dz + bocy * dy + bocx * dx
     ts = torch.minimum(torch.clamp(-bhb, min=t_min), t_ub)
     vx, vy, vz = ts * dx + bocx, ts * dy + bocy, ts * dz + bocz
     v2 = vz * vz + vy * vy + vx * vx
-    return v2 <= slack * 2.0 ** -24 * (bhb * bhb + v2) + br2
+    return v2 <= CULL_SLACK * 2.0 ** -24 * (bhb * bhb + v2) + br2
 
 
 def _live_chunks(bounds, prio, geom, prev, ox, oy, oz, dx, dy, dz, t_min):
