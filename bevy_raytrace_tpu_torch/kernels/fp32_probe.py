@@ -27,9 +27,10 @@ sizes) and "k1" (K1's loop on its device-memory, global, table).  "prod",
 t = NaN, index -1.
 
 Each wrapper checks its operands and, on CUDA tensors, launches its kernel
-and adds one to its `launches`; on CPU tensors it runs the `*_plain` version
-beside it on [S, R] planes (what the kernel is held against on the card);
-any other device raises.
+and adds one to its counter (`v1.launches` ... `v3.launches` in
+`utils.spans`); on CPU tensors it runs the `*_plain` version beside it on
+[S, R] planes (what the kernel is held against on the card); any other
+device raises.
 """
 
 from __future__ import annotations
@@ -121,12 +122,9 @@ def v1_sweep(g, r, iters: int):
     if device.type == "cpu":
         return v1_sweep_plain(g, r, iters)
     out = torch.empty((1, n), dtype=torch.float32, device=device)
-    _launch(v1_sweep, _launchers, "brt_v1_sweep", device, g.data_ptr(),
+    _launch("v1", _launchers, "brt_v1_sweep", device, g.data_ptr(),
             r.data_ptr(), out.data_ptr(), s, n, int(iters))
     return out
-
-
-v1_sweep.launches = 0
 
 
 def v1_root_check(lo: int, hi: int, device="cuda"):
@@ -190,12 +188,9 @@ def v2_fma(g, r, iters: int):
     if device.type == "cpu":
         return v2_fma_plain(g, r, iters)
     out = torch.empty((1, n), dtype=torch.float32, device=device)
-    _launch(v2_fma, _launchers, "brt_v2_fma", device, g.data_ptr(),
+    _launch("v2", _launchers, "brt_v2_fma", device, g.data_ptr(),
             r.data_ptr(), out.data_ptr(), s, n, int(iters), int(bf16))
     return out
-
-
-v2_fma.launches = 0
 
 
 # --- V3 ---------------------------------------------------------------------
@@ -240,10 +235,7 @@ def v3_sweep(g, r, iters: int, variant: str = "prod"):
         return v3_sweep_plain(g, r, iters, variant)
     t = torch.empty((1, n), dtype=torch.float32, device=device)
     idx = torch.empty((1, n), dtype=torch.int32, device=device)
-    _launch(v3_sweep, _launchers, "brt_v3_sweep", device, g.data_ptr(),
+    _launch("v3", _launchers, "brt_v3_sweep", device, g.data_ptr(),
             r.data_ptr(), t.data_ptr(), idx.data_ptr(), s, n, int(iters),
             VARIANTS.index(variant))
     return t, idx
-
-
-v3_sweep.launches = 0

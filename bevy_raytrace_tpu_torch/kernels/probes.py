@@ -16,10 +16,11 @@ TPU's compiler whether a render kernel may be built on a construct:
                          (`p5_onehot_gather`).
 
 Each wrapper checks its operands and, on CUDA tensors, launches its kernel
-and adds one to its `launches`; on CPU tensors it runs the `*_plain` version
-beside it (the function the kernel is held against on the card); any other
-device raises.  On the card P1 runs as one thread block cluster of 8 blocks
-whose warps each vote on their own lanes and meet once for the round count,
+and adds one to its counter (`p1.launches` ... `p5.launches` in
+`utils.spans`); on CPU tensors it runs the `*_plain` version beside it (the
+function the kernel is held against on the card); any other device raises.
+On the card P1 runs as one thread block cluster of 8 blocks whose warps
+each vote on their own lanes and meet once for the round count,
 P2 as a block of 256 threads a 64 x 64 tile of c, stored 128 bits at a
 time, and P3 as a float4 a thread on a 64-bit index (`csrc/probes.cu` says
 why).  Where the TPU kernel uses a device of that machine, the port
@@ -38,6 +39,7 @@ import torch
 
 from bevy_raytrace_tpu_torch.kernels import build
 from bevy_raytrace_tpu_torch.kernels.render_lanes import _check
+from bevy_raytrace_tpu_torch.utils.spans import count
 
 LANES = 128
 P1_SHAPE = (8, LANES)
@@ -89,12 +91,13 @@ def _check_ints(name, argtypes, args):
                              f"its {ctype.__name__} ([{lo}, {hi}])")
 
 
-def _launch(wrapper, launchers, name, device, *args):
+def _launch(kernel, launchers, name, device, *args):
     """Launch `launchers()[name]` on `device`'s current stream and count it
-    on `wrapper`; raises where the device is not CUDA, an integer argument
-    does not fit its C type, or the launch is refused."""
+    in the counter `<kernel>.launches`; raises where the device is not CUDA,
+    an integer argument does not fit its C type, or the launch is
+    refused."""
     if device.type != "cuda":
-        raise ValueError(f"{wrapper.__name__} runs on CUDA (or its plain "
+        raise ValueError(f"{kernel.upper()} runs on CUDA (or its plain "
                          f"version on CPU), not {device}")
     fn = launchers()[name]
     _check_ints(name, fn.argtypes, args)
@@ -102,7 +105,7 @@ def _launch(wrapper, launchers, name, device, *args):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
-    wrapper.launches += 1
+    count(f"{kernel}.launches")
 
 
 # --- P1 ---------------------------------------------------------------------
@@ -142,12 +145,9 @@ def p1_while(x):
         return p1_while_plain(x)
     out = torch.empty_like(x)
     rounds = torch.empty((1,), dtype=torch.int32, device=device)
-    _launch(p1_while, _launchers, "brt_p1_while", device, x.data_ptr(),
+    _launch("p1", _launchers, "brt_p1_while", device, x.data_ptr(),
             out.data_ptr(), rounds.data_ptr())
     return out, rounds
-
-
-p1_while.launches = 0
 
 
 # --- P2 ---------------------------------------------------------------------
@@ -176,12 +176,9 @@ def p2_dot(a, b):
     if device.type == "cpu":
         return p2_dot_plain(a, b)
     c = torch.empty((m, n), dtype=torch.float32, device=device)
-    _launch(p2_dot, _launchers, "brt_p2_dot", device, a.data_ptr(),
+    _launch("p2", _launchers, "brt_p2_dot", device, a.data_ptr(),
             b.data_ptr(), c.data_ptr(), m, n, k)
     return c
-
-
-p2_dot.launches = 0
 
 
 # --- P3 ---------------------------------------------------------------------
@@ -206,12 +203,9 @@ def p3_reshape(x):
     if device.type == "cpu":
         return p3_reshape_plain(x)
     out = torch.empty_like(x)
-    _launch(p3_reshape, _launchers, "brt_p3_reshape", device, x.data_ptr(),
+    _launch("p3", _launchers, "brt_p3_reshape", device, x.data_ptr(),
             out.data_ptr(), x.shape[0])
     return out
-
-
-p3_reshape.launches = 0
 
 
 # --- P4 ---------------------------------------------------------------------
@@ -247,12 +241,9 @@ def p4_min(t):
         return p4_min_plain(t)
     m = torch.empty((r // LANES, LANES), dtype=torch.float32, device=device)
     row = torch.empty((r // LANES, LANES), dtype=torch.int32, device=device)
-    _launch(p4_min, _launchers, "brt_p4_min", device, t.data_ptr(),
+    _launch("p4", _launchers, "brt_p4_min", device, t.data_ptr(),
             m.data_ptr(), row.data_ptr(), s, r)
     return m, row
-
-
-p4_min.launches = 0
 
 
 # --- P5 ---------------------------------------------------------------------
@@ -279,10 +270,7 @@ def p5_onehot_gather(packed, m, attr):
     if device.type == "cpu":
         return p5_onehot_gather_plain(packed, m, attr)
     out = torch.empty((P5_ATTRS, r), dtype=torch.float32, device=device)
-    _launch(p5_onehot_gather, _launchers, "brt_p5_gather", device,
+    _launch("p5", _launchers, "brt_p5_gather", device,
             packed.data_ptr(), m.data_ptr(), attr.data_ptr(), out.data_ptr(),
             s, r)
     return out
-
-
-p5_onehot_gather.launches = 0

@@ -64,6 +64,7 @@ from bevy_raytrace_tpu_torch.kernels.common import (
     _to_unit,
 )
 from bevy_raytrace_tpu_torch.kernels.render_lanes import _check
+from bevy_raytrace_tpu_torch.utils.spans import count
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 # Residuals are int16 up to this many sphere slots, int32 above.
@@ -301,10 +302,9 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     scene's sphere count) selects the cluster-culled loop; the residuals
     are scene indices either way.
 
-    CUDA tensors launch the kernel (and count one in
-    `record_frame.launches`, and in `record_frame.launches_clustered` when
-    culled); CPU tensors run `record_frame_plain`; any other device
-    raises."""
+    CUDA tensors launch the kernel (and count one in the counter
+    `k2.launches`, and in `k2.launches_clustered` when culled); CPU
+    tensors run `record_frame_plain`; any other device raises."""
     if record_second and not with_residuals:
         raise ValueError("record_second requires with_residuals")
     table, cam16 = table.detach(), cam16.detach()
@@ -352,15 +352,12 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
                      stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed with cudaError_t {err}")
-    record_frame.launches += 1
-    record_frame.launches_clustered += int(clusters is not None)
+    count("k2.launches")
+    if clusters is not None:
+        count("k2.launches_clustered")
     if num_local is None:
         img = img.reshape(config.height, config.width, 3)
     return img, res, res2
-
-
-record_frame.launches = 0
-record_frame.launches_clustered = 0
 
 
 # --- host side ----------------------------------------------------------

@@ -14,7 +14,8 @@ Table modes (`kernels/common.py::forward_table_plan`, by the sphere count):
 the kernel stages the sphere rows in shared memory once a block
 ("shared") unless that would leave too few blocks resident on an SM; then
 it reads them through the read-only cache ("global").  Both give the same
-bits; the global launches are counted apart (`render_lanes.launches_global`).
+bits; the global launches are counted apart (the counter
+`k1.launches_global`).
 
 The chunk-culled traversal (`plan=`, a `kernels.clusters.ClusterPlan`; the
 TPU kernel with `n_cull > 0`, `mxu_render.py:364-467`): the rows are
@@ -26,8 +27,8 @@ bound test is conservative against the member test's own rounding (a slack
 of `CULL_SLACK` u times the ray's squared distance to the bound, derived at
 the kernel's `chunk_live`) and a tie goes to the lower SCENE index, so the
 image and the cost map equal the dense sweep's bit for bit.  Culled launches
-are counted apart too (`render_lanes.launches_culled`); on the card a
-culled call launches the culled kernel or raises, never the dense one.
+are counted apart too (`k1.launches_culled`); on the card a culled call
+launches the culled kernel or raises, never the dense one.
 
 Host side, by the reference's names (bevy_raytrace_tpu/kernels/mxu_render.py):
   render_mxu_lanes, render_mxu_with_len, render_mxu, lane_pad,
@@ -84,6 +85,7 @@ from bevy_raytrace_tpu_torch.kernels.common import (
     check_table_mode,
     forward_table_mode,
 )
+from bevy_raytrace_tpu_torch.utils.spans import count, span
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 LANE_ALIGN = 128
@@ -417,81 +419,83 @@ def render_lanes(geom, attr, cam, pids, seed: int, sample_base: int, spp: int,
     over its rounds, and `max_rounds` > 0 stops a lane after that many
     rounds (both need `cull`).
 
-    CUDA tensors launch the kernel (and count one in `render_lanes.launches`,
-    in `render_lanes.launches_global` when the rows are read from device
-    memory, and in `render_lanes.launches_culled` when culled); CPU tensors
-    run `render_lanes_plain`; any other device raises."""
-    device = pids.device
-    check_table_mode(table_mode)
-    _check("pids", pids, torch.int32, (None,), device)
-    n_spheres = geom.shape[0] if isinstance(geom, torch.Tensor) else 0
-    _check("geom", geom, torch.float32, (n_spheres, 4), device)
-    _check("attr", attr, torch.float32, (n_spheres, 8), device)
-    _check("cam", cam, torch.float32, (16,), device)
-    n = pids.shape[0]
-    if n % LANE_ALIGN or n_spheres == 0:
-        raise ValueError(f"need a multiple of {LANE_ALIGN} lanes (got {n}) "
-                         f"and at least one sphere row (got {n_spheres})")
-    if not (0 <= seed < 2**32 and 0 <= sample_base < 2**32 and spp >= 0
-            and max_depth >= 0 and width > 0 and height > 0):
-        raise ValueError("seed/sample_base must be 32-bit unsigned; spp, "
-                         "max_depth >= 0; width, height > 0")
-    if cull is None:
-        if count_live or max_rounds:
-            raise ValueError("count_live and max_rounds need cull")
-    else:
-        _check_cull(cull, n_spheres, device)
-        if not 0 <= max_rounds < 2**24:
-            raise ValueError(f"max_rounds must be in [0, 2^24), got "
-                             f"{max_rounds}")
-    if device.type == "cpu":
-        return render_lanes_plain(geom, attr, cam, pids, seed, sample_base,
-                                  spp, max_depth, t_min, width, height, cull,
-                                  count_live, max_rounds)
-    if device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA (or its twin on CPU), not {device}")
-    fb = torch.empty((n, 3), dtype=torch.float32, device=device)
-    ln = torch.empty((n,), dtype=torch.float32, device=device)
-    live = (torch.empty((n,), dtype=torch.float32, device=device)
-            if count_live else None)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    CUDA tensors launch the kernel (and count one in the counter
+    `k1.launches`, in `k1.launches_global` when the rows are read from
+    device memory, and in `k1.launches_culled` when culled); CPU tensors
+    run `render_lanes_plain`; any other device raises.  The span
+    `k1.launch` covers it, checks and launch."""
+    with span("k1.launch"):
+        device = pids.device
+        check_table_mode(table_mode)
+        _check("pids", pids, torch.int32, (None,), device)
+        n_spheres = geom.shape[0] if isinstance(geom, torch.Tensor) else 0
+        _check("geom", geom, torch.float32, (n_spheres, 4), device)
+        _check("attr", attr, torch.float32, (n_spheres, 8), device)
+        _check("cam", cam, torch.float32, (16,), device)
+        n = pids.shape[0]
+        if n % LANE_ALIGN or n_spheres == 0:
+            raise ValueError(f"need a multiple of {LANE_ALIGN} lanes (got "
+                             f"{n}) and at least one sphere row (got "
+                             f"{n_spheres})")
+        if not (0 <= seed < 2**32 and 0 <= sample_base < 2**32 and spp >= 0
+                and max_depth >= 0 and width > 0 and height > 0):
+            raise ValueError("seed/sample_base must be 32-bit unsigned; spp, "
+                             "max_depth >= 0; width, height > 0")
         if cull is None:
-            mode = forward_table_mode("k1_render", device, n_spheres,
-                                      table_mode)
-            err = _k1_launcher()(
-                geom.data_ptr(), attr.data_ptr(), n_spheres, cam.data_ptr(),
-                pids.data_ptr(), n, fb.data_ptr(), ln.data_ptr(), seed,
-                sample_base, spp, max_depth, t_min, width, height,
-                FORWARD_TABLE_MODES.index(mode), stream)
+            if count_live or max_rounds:
+                raise ValueError("count_live and max_rounds need cull")
         else:
-            n_chunks, n_prio = cull.bounds.shape[0], cull.prio.shape[0]
-            mode = forward_table_mode("k1_render_culled", device,
-                                      n_spheres + n_chunks + n_prio,
-                                      table_mode)
-            err = _k1_culled_launcher()(
-                geom.data_ptr(), attr.data_ptr(), n_spheres,
-                cull.bounds.data_ptr(), cull.members.data_ptr(),
-                cull.row_of.data_ptr(), cull.prio.data_ptr() if n_prio else 0,
-                n_chunks, cull.cluster_size, n_prio, cam.data_ptr(),
-                pids.data_ptr(),
-                n, fb.data_ptr(), ln.data_ptr(),
-                0 if live is None else live.data_ptr(), seed, sample_base,
-                spp, max_depth, t_min, width, height, max_rounds,
-                FORWARD_TABLE_MODES.index(mode), stream)
-    if err != 0:
-        raise RuntimeError(f"K1 {'culled ' if cull is not None else ''}"
-                           f"launch ({mode} table) failed with cudaError_t "
-                           f"{err}")
-    render_lanes.launches += 1
-    render_lanes.launches_global += int(mode == "global")
-    render_lanes.launches_culled += int(cull is not None)
-    return (fb, ln, live) if count_live else (fb, ln)
-
-
-render_lanes.launches = 0
-render_lanes.launches_global = 0
-render_lanes.launches_culled = 0
+            _check_cull(cull, n_spheres, device)
+            if not 0 <= max_rounds < 2**24:
+                raise ValueError(f"max_rounds must be in [0, 2^24), got "
+                                 f"{max_rounds}")
+        if device.type == "cpu":
+            return render_lanes_plain(geom, attr, cam, pids, seed,
+                                      sample_base, spp, max_depth, t_min,
+                                      width, height, cull, count_live,
+                                      max_rounds)
+        if device.type != "cuda":
+            raise ValueError(f"K1 runs on CUDA (or its twin on CPU), not "
+                             f"{device}")
+        fb = torch.empty((n, 3), dtype=torch.float32, device=device)
+        ln = torch.empty((n,), dtype=torch.float32, device=device)
+        live = (torch.empty((n,), dtype=torch.float32, device=device)
+                if count_live else None)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            if cull is None:
+                mode = forward_table_mode("k1_render", device, n_spheres,
+                                          table_mode)
+                err = _k1_launcher()(
+                    geom.data_ptr(), attr.data_ptr(), n_spheres,
+                    cam.data_ptr(), pids.data_ptr(), n, fb.data_ptr(),
+                    ln.data_ptr(), seed, sample_base, spp, max_depth, t_min,
+                    width, height, FORWARD_TABLE_MODES.index(mode), stream)
+            else:
+                n_chunks, n_prio = cull.bounds.shape[0], cull.prio.shape[0]
+                mode = forward_table_mode("k1_render_culled", device,
+                                          n_spheres + n_chunks + n_prio,
+                                          table_mode)
+                err = _k1_culled_launcher()(
+                    geom.data_ptr(), attr.data_ptr(), n_spheres,
+                    cull.bounds.data_ptr(), cull.members.data_ptr(),
+                    cull.row_of.data_ptr(),
+                    cull.prio.data_ptr() if n_prio else 0, n_chunks,
+                    cull.cluster_size, n_prio, cam.data_ptr(),
+                    pids.data_ptr(), n, fb.data_ptr(), ln.data_ptr(),
+                    0 if live is None else live.data_ptr(), seed,
+                    sample_base, spp, max_depth, t_min, width, height,
+                    max_rounds, FORWARD_TABLE_MODES.index(mode), stream)
+        if err != 0:
+            raise RuntimeError(f"K1 {'culled ' if cull is not None else ''}"
+                               f"launch ({mode} table) failed with "
+                               f"cudaError_t {err}")
+        count("k1.launches")
+        if mode == "global":
+            count("k1.launches_global")
+        if cull is not None:
+            count("k1.launches_culled")
+        return (fb, ln, live) if count_live else (fb, ln)
 
 
 # --- host side ----------------------------------------------------------
@@ -503,11 +507,14 @@ def render_mxu_lanes(scene, camera, config: RenderConfig, pid_grid, frame=0,
     ABSOLUTE pixel id of each lane.  Returns (fb [p, 3], len [p]) in
     lane-slot order, divided by spp.  `plan` (a `ClusterPlan` of this
     scene's sphere count) runs the chunk-culled traversal: the same bits."""
-    tables = _scene_tables(scene, plan)
+    with span("k1.tables"):
+        tables = _scene_tables(scene, plan)
+        cam = camera.pack().contiguous()
+        seed = frame_seed(config, frame)
     fb, ln = render_lanes(
-        *tables[:2], camera.pack().contiguous(), pid_grid.reshape(-1),
-        frame_seed(config, frame), sample_base, config.samples_per_pixel,
-        config.max_depth, config.t_min, config.width, config.height,
+        *tables[:2], cam, pid_grid.reshape(-1), seed, sample_base,
+        config.samples_per_pixel, config.max_depth, config.t_min,
+        config.width, config.height,
         cull=tables[2] if plan is not None else None)
     inv_spp = float(np.float32(1.0 / config.samples_per_pixel))
     return fb * inv_spp, ln * inv_spp
@@ -546,13 +553,14 @@ def render_mxu_with_len(scene, camera, config: RenderConfig, frame=0,
     fb, ln = render_mxu_lanes(scene, camera, config,
                               pids.reshape(-1, LANE_ALIGN), frame, sample_base,
                               plan)
-    idx = pids[:n].long()
-    img = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    img[idx] = fb[:n]
-    lmap = torch.zeros((n,), dtype=torch.float32, device=dev)
-    lmap[idx] = ln[:n]
-    return (img.reshape(config.height, config.width, 3),
-            lmap.reshape(config.height, config.width))
+    with span("k1.scatter"):
+        idx = pids[:n].long()
+        img = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        img[idx] = fb[:n]
+        lmap = torch.zeros((n,), dtype=torch.float32, device=dev)
+        lmap[idx] = ln[:n]
+        return (img.reshape(config.height, config.width, 3),
+                lmap.reshape(config.height, config.width))
 
 
 def render_mxu(scene, camera, config: RenderConfig, frame=0, perm=None,

@@ -23,7 +23,7 @@ the kernel keeps a float64 copy of the table's 9 gradient columns in shared
 memory and flushes it once ("shared"), unless that copy is larger than a
 block may hold on the device, ~3,157 rows on an H100; then the adds go
 straight to the output ("global").  Both are the kernel, counted apart
-(`replay_grad.launches_global`).
+(the counter `k3.launches_global`).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from bevy_raytrace_tpu_torch.core.camera import Camera
 from bevy_raytrace_tpu_torch.kernels import build
 from bevy_raytrace_tpu_torch.kernels.record import _check_frame, _stripe
 from bevy_raytrace_tpu_torch.kernels.render_lanes import _check
+from bevy_raytrace_tpu_torch.utils.spans import count
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 # The deepest path K3 replays: its per-thread state array holds this many
@@ -169,9 +170,9 @@ def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
 
     Returns (d_table [S, 11], d_cam [16]) float32, d_cam in `pack()`'s
     layout; in stripe mode the stripe's partial sums.  CUDA tensors launch
-    the kernel (and count one in `replay_grad.launches`, and in
-    `replay_grad.launches_global` when the table is too large for a block's
-    shared memory); CPU tensors run `replay_grad_plain`; any other device
+    the kernel (and count one in the counter `k3.launches`, and in
+    `k3.launches_global` when the table is too large for a block's shared
+    memory); CPU tensors run `replay_grad_plain`; any other device
     raises.  Paths deeper than MAX_DEPTH bounces raise on every device."""
     base, n = _check_operands(table, cam16, config, res, g, sample_base,
                               res2, pixel_base, num_local)
@@ -187,13 +188,10 @@ def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
     mode = _table_mode(table)
     out = _launch(_k3_launcher(), table, cam16, config, res, g, frame,
                   sample_base, res2, base, n, mode)
-    replay_grad.launches += 1
-    replay_grad.launches_global += int(mode == "global")
+    count("k3.launches")
+    if mode == "global":
+        count("k3.launches_global")
     return out
-
-
-replay_grad.launches = 0
-replay_grad.launches_global = 0
 
 
 def _launch(launch, table, cam16, config: RenderConfig, res, g, frame: int,

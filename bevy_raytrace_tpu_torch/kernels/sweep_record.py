@@ -16,7 +16,7 @@ not by bytes.  Like K1 it refills each thread with its pixel's next sample
 when a path ends (one loop over rounds), and it has K1's two table modes
 (`kernels/common.py::forward_table_plan`: the sphere rows staged in shared
 memory, or read from device memory above the plan's limit, counted in
-`sweep_record_frame.launches_global`), with the same bits in both.
+`k4.launches_global`), with the same bits in both.
 
 Host side, by the reference's name: `render_sweep_record(scene, camera,
 config, frame, sample_base, record_second, pixel_base, num_local)` ->
@@ -57,6 +57,7 @@ from bevy_raytrace_tpu_torch.kernels.record import (
     residual_dtype,
 )
 from bevy_raytrace_tpu_torch.kernels.render_lanes import _plain_chunk
+from bevy_raytrace_tpu_torch.utils.spans import count
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 
@@ -149,9 +150,9 @@ def sweep_record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     None).  `table_mode` None takes `forward_table_plan`'s mode; "shared" or
     "global" forces one (a shared table too large for a block raises).
 
-    CUDA tensors launch the kernel (and count one in
-    `sweep_record_frame.launches`, and in `sweep_record_frame.launches_global`
-    when the rows are read from device memory); CPU tensors run
+    CUDA tensors launch the kernel (and count one in the counter
+    `k4.launches`, and in `k4.launches_global` when the rows are read from
+    device memory); CPU tensors run
     `sweep_record_frame_plain`; any other device raises."""
     table, cam16 = table.detach(), cam16.detach()
     check_table_mode(table_mode)
@@ -186,15 +187,12 @@ def sweep_record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     if err != 0:
         raise RuntimeError(f"K4 launch ({mode} table) failed with "
                            f"cudaError_t {err}")
-    sweep_record_frame.launches += 1
-    sweep_record_frame.launches_global += int(mode == "global")
+    count("k4.launches")
+    if mode == "global":
+        count("k4.launches_global")
     if num_local is None:
         img = img.reshape(config.height, config.width, 3)
     return img, res, res2
-
-
-sweep_record_frame.launches = 0
-sweep_record_frame.launches_global = 0
 
 
 # --- host side ----------------------------------------------------------

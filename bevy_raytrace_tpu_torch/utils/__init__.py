@@ -1,4 +1,3 @@
-from bevy_raytrace_tpu_torch.utils.metrics import (FrameTimer, RenderMetrics,
-                                                   trace_profile)
+from bevy_raytrace_tpu_torch.utils.metrics import trace_profile
 
-__all__ = ["FrameTimer", "RenderMetrics", "trace_profile"]
+__all__ = ["trace_profile"]

@@ -13,11 +13,10 @@ from __future__ import annotations
 import concurrent.futures
 import threading
 import time
-from typing import Optional
-
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.device import resolve
-from bevy_raytrace_tpu_torch.utils.metrics import FrameTimer, synchronize
+from bevy_raytrace_tpu_torch.utils.metrics import synchronize
+from bevy_raytrace_tpu_torch.utils.spans import span
 
 # Samples of the probe pass that measures the cost map (they count).
 PROBE_SPP = 16
@@ -189,12 +188,11 @@ class Renderer:
         threading.Thread(target=run, daemon=True, name="brt-warmup").start()
         return fut
 
-    def render_frame(self, scene, camera, timer: Optional[FrameTimer] = None):
-        """Render the next frame (the frame counter auto-advances)."""
-        if timer is not None:
-            img, _ = timer.time_frame(self._step, scene, camera, self.config,
-                                      self.frame)
-        else:
+    def render_frame(self, scene, camera):
+        """Render the next frame (the frame counter auto-advances).  Its
+        host side, from the request to the last enqueue, is the span
+        `session.frame`, which marks the spans inside it with the frame."""
+        with span("session.frame", frame=self.frame):
             img = self._step(scene, camera, self.config, self.frame)
         self.frame += 1
         self.ready = True

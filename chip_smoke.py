@@ -254,6 +254,21 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+def zero_launches(*kernels):
+    """Set every launch counter of `kernels` ("k1", "p3", ...) to 0."""
+    from bevy_raytrace_tpu_torch.utils import spans
+
+    for k in kernels:
+        spans.reset_counters(f"{k}.")
+
+
+def launches_of(kernels):
+    """{kernel: the launches counted for it} for `kernels`."""
+    from bevy_raytrace_tpu_torch.utils import spans
+
+    return {k: spans.counter(f"{k}.launches") for k in kernels}
+
+
 def cuda_ms(fn, reps, warm=True):
     """Mean CUDA-event milliseconds of fn() over `reps` runs (after one
     warm-up run if `warm`) and fn()'s last result."""
@@ -490,9 +505,6 @@ def recovery_phase(dev, smi, cli_problem):
     import torch
 
     from bevy_raytrace_tpu_torch.inverse import optimize
-    from bevy_raytrace_tpu_torch.kernels import record as k2
-    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
-    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
     from bevy_raytrace_tpu_torch.profile_grad import (
         RECOVERY_BARS,
         _profile,
@@ -501,9 +513,8 @@ def recovery_phase(dev, smi, cli_problem):
         cli_inverse_problem,
     )
 
-    wrappers = {"k2": k2.record_frame, "k3": k3.replay_grad,
-                "k4": k4.sweep_record_frame}
-    total = dict.fromkeys(wrappers, 0)
+    kernels = ("k2", "k3", "k4")
+    total = dict.fromkeys(kernels, 0)
 
     def run(label, make_problem, forward, steps, lr, tail):
         """`steps` Adam steps through `forward` on the problem
@@ -513,13 +524,12 @@ def recovery_phase(dev, smi, cli_problem):
         scene_bad, scene_true, problem = make_problem()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        for w in wrappers.values():
-            w.launches = 0
+        zero_launches(*kernels)
         t0 = time.perf_counter()
         result = optimize(scene_bad, problem, steps=steps, learning_rate=lr)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {k: w.launches for k, w in wrappers.items()}
+        got = launches_of(kernels)
         renders = 2 * steps
         want = {"k2": renders if forward == "pallas" else 0,
                 "k3": 0 if forward == "wavefront" else renders,
@@ -610,6 +620,7 @@ def gradient_phases(dev, smi):
         cli_inverse_problem,
         random_scene,
     )
+    from bevy_raytrace_tpu_torch.utils import spans
 
     # ---- 7. build K2 and K3 ----------------------------------------------
     names = ["k2_record", "k3_replay_grad", "k4_sweep_record"]
@@ -817,8 +828,7 @@ def gradient_phases(dev, smi):
     del res
 
     # ---- 10. inverse rendering at the CLI's size --------------------------
-    k2.record_frame.launches = 0
-    k3.replay_grad.launches = k3.replay_grad.launches_global = 0
+    zero_launches("k2", "k3")
     scene_bad, scene_true, problem = cli_inverse_problem(dev)
     inv_cfg = problem.config
     with tempfile.TemporaryDirectory() as tmp:
@@ -853,15 +863,15 @@ def gradient_phases(dev, smi):
           f"vs {again.losses}")
 
     # ---- 11. recovery through both recorders ------------------------------
-    counts = (k2.record_frame.launches, k3.replay_grad.launches,
-              k3.replay_grad.launches_global)
+    counts = spans.counters()
     t0 = time.perf_counter()
     rec_launches, rec_stats = recovery_phase(
         dev, smi, (scene_bad, scene_true, problem))
     rec_stats["phase_s"] = time.perf_counter() - t0
     log(f"[time] phase 11 in {rec_stats['phase_s']:.1f} s")
-    (k2.record_frame.launches, k3.replay_grad.launches,
-     k3.replay_grad.launches_global) = counts
+    spans.reset_counters()
+    for name, n in counts.items():
+        spans.count(name, n)
 
     # ---- 12. the flagship gradient ----------------------------------------
     big = RenderConfig(width=1200, height=800, samples_per_pixel=256,
@@ -895,10 +905,10 @@ def gradient_phases(dev, smi):
     check(fl_vs["ok"], "chunked flagship gradient disagrees with the unchunked")
 
     # ---- 13. launches -----------------------------------------------------
-    k2_launches = k2.record_frame.launches
-    k3_launches = k3.replay_grad.launches
-    k3_modes = {"shared": k3_launches - k3.replay_grad.launches_global,
-                "global": k3.replay_grad.launches_global}
+    k2_launches = spans.counter("k2.launches")
+    k3_launches = spans.counter("k3.launches")
+    k3_modes = {"shared": k3_launches - spans.counter("k3.launches_global"),
+                "global": spans.counter("k3.launches_global")}
     log(f"[launches] k2_record launches={k2_launches}, k3_replay_grad "
         f"launches={k3_launches} ({k3_modes}) over phases 10 and 12")
     check(k2_launches > 0 and k3_modes["shared"] > 0,
@@ -915,11 +925,11 @@ def gradient_phases(dev, smi):
             dataclasses.replace(big_scene, centers=c), big_cam, 1)
         return torch.autograd.grad(torch.mean(img ** 2), c)[0]
 
-    k2.record_frame.launches = 0
-    k3.replay_grad.launches = k3.replay_grad.launches_global = 0
+    zero_launches("k2", "k3")
     g_big = big_grad("kernel")
-    big_launches = (k2.record_frame.launches, k3.replay_grad.launches,
-                    k3.replay_grad.launches_global)
+    big_launches = (spans.counter("k2.launches"),
+                    spans.counter("k3.launches"),
+                    spans.counter("k3.launches_global"))
     k3_modes["global"] += big_launches[2]
     big_vs = grad_close(g_big.cpu(), big_grad("torch").cpu())
     log(f"[big scene grad] {big_scene.count} spheres, {small.width}x"
@@ -979,6 +989,7 @@ def sharded_phases(dev, smi, shared, ref):
         make_mesh,
         render_mxu_sharded,
     )
+    from bevy_raytrace_tpu_torch.utils import spans
     from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
@@ -1153,10 +1164,7 @@ def sharded_phases(dev, smi, shared, ref):
     log(f"[sharded] torch.distributed group: backend {dist.get_backend()}, "
         f"world size {mesh.world_size}, mesh {mesh.hosts}x{mesh.chips}, "
         f"device {mesh.device}")
-    for wrapper in (k1.render_lanes, k2.record_frame, k3.replay_grad,
-                    k4.sweep_record_frame):
-        wrapper.launches = 0
-    k4.sweep_record_frame.launches_global = 0
+    zero_launches("k1", "k2", "k3", "k4")
 
     sharded = {}
     for forward in ("pallas", "sweep"):
@@ -1203,13 +1211,13 @@ def sharded_phases(dev, smi, shared, ref):
         img = r.render_frame(ref_scene, ref_cam)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"k1": k1.render_lanes.launches,
-                "k2": k2.record_frame.launches,
-                "k3": k3.replay_grad.launches,
-                "k4": k4.sweep_record_frame.launches}
+    launches = {"k1": spans.counter("k1.launches"),
+                "k2": spans.counter("k2.launches"),
+                "k3": spans.counter("k3.launches"),
+                "k4": spans.counter("k4.launches")}
     k4_modes = {"shared": launches["k4"]
-                - k4.sweep_record_frame.launches_global,
-                "global": k4.sweep_record_frame.launches_global}
+                - spans.counter("k4.launches_global"),
+                "global": spans.counter("k4.launches_global")}
     dist.destroy_process_group()
     # The unsharded renders they are held against (launched after the
     # path's counts were read).
@@ -1235,12 +1243,11 @@ def sharded_phases(dev, smi, shared, ref):
     # render_sweep_record, counted, and held against the twin.
     huge_cfg = shared["huge_cfg"]
     huge_scene, huge_cam = shared["huge_scene"], shared["huge_cam"]
-    k4.sweep_record_frame.launches = 0
-    k4.sweep_record_frame.launches_global = 0
+    zero_launches("k4")
     img, res, res2 = render_sweep_record(huge_scene, huge_cam, huge_cfg, 1,
                                          record_second=True)
-    huge_counts = (k4.sweep_record_frame.launches,
-                   k4.sweep_record_frame.launches_global)
+    huge_counts = (spans.counter("k4.launches"),
+                   spans.counter("k4.launches_global"))
     k4_modes["global"] += huge_counts[1]
     table, cam16 = shared["huge_operands"]
     pimg, pres, pres2 = k4.sweep_record_frame_plain(table, cam16, huge_cfg, 1,
@@ -1321,13 +1328,12 @@ def cli_phases(dev, smi, shared, ref):
     from bevy_raytrace_tpu_torch.io import native, tonemap
     from bevy_raytrace_tpu_torch.kernels import record as k2
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
-    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
-    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
     from bevy_raytrace_tpu_torch.kernels.clusters import (
         cluster_bounds,
         cluster_scene,
     )
     from bevy_raytrace_tpu_torch.kernels.common import _plain_camera
+    from bevy_raytrace_tpu_torch.utils import spans
     from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render
 
@@ -1431,20 +1437,17 @@ def cli_phases(dev, smi, shared, ref):
     # just before it and read just after, and must be exactly the leg's
     # own.  The images the legs are held against are rendered between the
     # legs, outside every counted window.
-    wrappers = {"k1": k1.render_lanes, "k2": k2.record_frame,
-                "k3": k3.replay_grad, "k4": k4.sweep_record_frame}
-    launches = dict.fromkeys([*wrappers, "k2_clustered"], 0)
+    kernels = ("k1", "k2", "k3", "k4")
+    launches = dict.fromkeys([*kernels, "k2_clustered"], 0)
     legs = {}
 
     def counted(leg, fn, **want):
         """fn() with every count at 0 before and read after -> its result.
         The leg must launch exactly `want` (kernels not named: none)."""
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
-        k2.record_frame.launches_clustered = 0
+        zero_launches(*kernels)
         out = fn()
-        got = {k: w.launches for k, w in wrappers.items()}
-        got["k2_clustered"] = k2.record_frame.launches_clustered
+        got = launches_of(kernels)
+        got["k2_clustered"] = spans.counter("k2.launches_clustered")
         legs[leg] = {k: v for k, v in got.items() if v}
         log(f"[launches] {leg}: {legs[leg]}")
         check(got == {**dict.fromkeys(got, 0), **want},
@@ -1714,10 +1717,7 @@ def tool_phases(dev, smi):
     from bevy_raytrace_tpu_torch.kernels import build
     from bevy_raytrace_tpu_torch.kernels import fp32_probe as vp
     from bevy_raytrace_tpu_torch.kernels import probes as pp
-    from bevy_raytrace_tpu_torch.kernels import record as k2
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
-    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
-    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare
     from bevy_raytrace_tpu_torch.tools import fp32_probe as fp32_tool
     from bevy_raytrace_tpu_torch.tools import grad_bench, proto_probes
@@ -1735,21 +1735,17 @@ def tool_phases(dev, smi):
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] probes + fp32_probe in {build_s:.2f} s (in parallel)")
 
-    wrappers = {"p1": pp.p1_while, "p2": pp.p2_dot, "p3": pp.p3_reshape,
-                "p4": pp.p4_min, "p5": pp.p5_onehot_gather,
-                "v1": vp.v1_sweep, "v2": vp.v2_fma, "v3": vp.v3_sweep,
-                "k1": k1.render_lanes, "k2": k2.record_frame,
-                "k3": k3.replay_grad, "k4": k4.sweep_record_frame}
-    launches = dict.fromkeys(wrappers, 0)
+    kernels = ("p1", "p2", "p3", "p4", "p5", "v1", "v2", "v3", "k1", "k2",
+               "k3", "k4")
+    launches = dict.fromkeys(kernels, 0)
     legs = {}
 
     def counted(leg, fn, **want):
         """fn() with every count at 0 before and read after -> its result.
         The leg must launch exactly `want` (kernels not named: none)."""
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
+        zero_launches(*kernels)
         out = fn()
-        got = {k: w.launches for k, w in wrappers.items()}
+        got = launches_of(kernels)
         legs[leg] = {k: v for k, v in got.items() if v}
         log(f"[launches] {leg}: {legs[leg]}")
         check(got == {**dict.fromkeys(got, 0), **want},
@@ -2152,10 +2148,6 @@ def bench_phases(dev, smi):
     import torch
 
     import bench_torch
-    from bevy_raytrace_tpu_torch.kernels import record as k2
-    from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
-    from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
-    from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
     from bevy_raytrace_tpu_torch.tools import ref_probe, scaling
 
     def stdout_of(fn):
@@ -2172,13 +2164,11 @@ def bench_phases(dev, smi):
         return isinstance(v, float) and math.isfinite(v) and v > 0.0
 
     # ---- 27. bench_torch, tools.scaling, tools.ref_probe --------------------
-    wrappers = {"k1": k1.render_lanes, "k2": k2.record_frame,
-                "k3": k3.replay_grad, "k4": k4.sweep_record_frame}
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
+    kernels = ("k1", "k2", "k3", "k4")
+    zero_launches(*kernels)
     bench_s, lines = stdout_of(
         lambda: bench_torch.main(["--quick", "--repeats", "1"]))
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launches_of(kernels)
     log(f"[launches] bench_torch --quick: {launches}")
     # K1: the gate 3 (8 spp is all probe: `cuda` 1, the session's probe
     # and cached frames 1 each), the reference workload 5 (its probe frame
@@ -2261,6 +2251,7 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare
     from bevy_raytrace_tpu_torch.profile_grad import random_scene
     from bevy_raytrace_tpu_torch.tools import livechunks
+    from bevy_raytrace_tpu_torch.utils import spans
 
     from bevy_raytrace_tpu_torch.kernels import build
 
@@ -2273,8 +2264,9 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
         log(f"[culled] ptxas {name}: {props}")
 
     def counts():
-        return (k1.render_lanes.launches, k1.render_lanes.launches_global,
-                k1.render_lanes.launches_culled)
+        return (spans.counter("k1.launches"),
+                spans.counter("k1.launches_global"),
+                spans.counter("k1.launches_culled"))
 
     def culled_args(scene, cam, cfg, pids, plan):
         geom, attr, cull = k1._scene_tables(scene, plan)
@@ -2284,8 +2276,7 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
     # The main path's leg: the flagship through render_mxu_balanced(plan=),
     # twice, with the counts set to 0 just before and read just after.
     flag_plan = cluster_scene(flag_scene, size)
-    k1.render_lanes.launches = k1.render_lanes.launches_global = 0
-    k1.render_lanes.launches_culled = 0
+    zero_launches("k1")
     cull_s = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -2461,6 +2452,7 @@ def main() -> int:
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare
     from bevy_raytrace_tpu_torch.profile_grad import random_scene, smi_line
+    from bevy_raytrace_tpu_torch.utils import spans
     from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render
 
@@ -2551,7 +2543,7 @@ def main() -> int:
     del fb_plain
 
     # ---- 4. the main path: Renderer sessions + the flagship --------------
-    k1.render_lanes.launches = k1.render_lanes.launches_global = 0
+    zero_launches("k1")
     r = Renderer(ref_cfg)  # the defaults: backend "cuda" on the card
     check(r.backend == "cuda" and r.device.type == "cuda",
           "Renderer's defaults are not the CUDA kernel on the card")
@@ -2579,9 +2571,9 @@ def main() -> int:
         flag = k1.render_mxu_balanced(flag_scene, flag_cam, flag_cfg)
         torch.cuda.synchronize()
         flag_s.append(time.perf_counter() - t0)
-    launches = k1.render_lanes.launches
-    k1_modes = {"shared": launches - k1.render_lanes.launches_global,
-                "global": k1.render_lanes.launches_global}
+    launches = spans.counter("k1.launches")
+    k1_modes = {"shared": launches - spans.counter("k1.launches_global"),
+                "global": spans.counter("k1.launches_global")}
     check(tuple(flag.shape) == (800, 1200, 3) and bool(
         torch.isfinite(flag).all()), "flagship image not finite")
     flag_rps = flag_cfg.rays_per_frame / min(flag_s)
@@ -2630,9 +2622,10 @@ def main() -> int:
                             max_depth=3)
     huge_scene = random_scene(15000, seed=1)
     huge_cam = scenes.rtiow_final_camera(huge_cfg.aspect)
-    k1.render_lanes.launches = k1.render_lanes.launches_global = 0
+    zero_launches("k1")
     huge_img = k1.render_mxu(huge_scene, huge_cam, huge_cfg)
-    huge_counts = (k1.render_lanes.launches, k1.render_lanes.launches_global)
+    huge_counts = (spans.counter("k1.launches"),
+                   spans.counter("k1.launches_global"))
     k1_modes["global"] += huge_counts[1]
     huge_pids = torch.arange(k1.lane_pad(huge_cfg.num_pixels),
                              dtype=torch.int32, device=dev)

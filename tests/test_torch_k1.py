@@ -32,6 +32,7 @@ from bevy_raytrace_tpu_torch.interop import (
 )
 from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
 from bevy_raytrace_tpu_torch.parity import COMPILED, INTERPRET, compare
+from bevy_raytrace_tpu_torch.utils import spans
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render
 
 torch.set_num_threads(2)
@@ -67,11 +68,11 @@ def test_twin_matches_tpu_kernel(name):
     jscene, _ = build()
     jcam = camera(64 / 32)
     want_img, want_len = j_k1(jscene, jcam, JConfig(**kw), 2, interpret=True)
-    before = k1.render_lanes.launches
+    before = spans.counter("k1.launches")
     got_img, got_len = k1.render_mxu_with_len(
         scene_from_reference(jscene), camera_from_reference(jcam),
         RenderConfig(**kw), 2)
-    assert k1.render_lanes.launches == before  # the twin is no launch
+    assert spans.counter("k1.launches") == before  # the twin is no launch
     stats = compare(got_img.numpy(), np.asarray(want_img), bound)
     assert stats["ok"], stats
     # Cost map: executed rounds per sample.  A flipped path changes its

@@ -34,6 +34,7 @@ from bevy_raytrace_tpu_torch.kernels.clusters import ClusterPlan, cluster_scene
 from bevy_raytrace_tpu_torch.kernels.common import _plain_camera, _rsqrt_guard
 from bevy_raytrace_tpu_torch.parity import COMPILED, compare
 from bevy_raytrace_tpu_torch.profile_grad import random_scene
+from bevy_raytrace_tpu_torch.utils import spans
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 torch.set_num_threads(2)
@@ -62,10 +63,10 @@ def test_culled_twin_matches_tpu_kernel(reference_culled):
     # The port plans as the reference does: the same Morton order.
     np.testing.assert_array_equal(plan.perm, np.asarray(jplan.perm))
     np.testing.assert_array_equal(plan.prio, np.asarray(jplan.prio))
-    before = k1.render_lanes.launches
+    before = spans.counter("k1.launches")
     got_img, got_len = k1.render_mxu_with_len(
         scene, camera_from_reference(jcam), RenderConfig(**KW), 0, plan=plan)
-    assert k1.render_lanes.launches == before  # the twin is no launch
+    assert spans.counter("k1.launches") == before  # the twin is no launch
     stats = compare(got_img.numpy(), want_img, COMPILED)
     assert stats["ok"], stats
     off = np.abs(got_len.numpy() - want_len) > 1e-6

@@ -33,6 +33,7 @@ from bevy_raytrace_tpu_torch.inverse import replay_image
 from bevy_raytrace_tpu_torch.kernels import record as k2
 from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
 from bevy_raytrace_tpu_torch.parity import INTERPRET, compare
+from bevy_raytrace_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 set_default_device("cpu")  # the port defaults to the CUDA device
@@ -74,11 +75,11 @@ def test_twin_matches_tpu_kernel(name):
     want_img, want_res, want_res2 = render_pallas(
         jscene, jcam, JConfig(**KW), 1, interpret=True, with_residuals=True,
         record_second=True)
-    before = k2.record_frame.launches
+    before = spans.counter("k2.launches")
     img, res, res2 = k2.render_record_plain(
         scene_from_reference(jscene), camera_from_reference(jcam), cfg, 1,
         record_second=True)
-    assert k2.record_frame.launches == before  # the twin is no launch
+    assert spans.counter("k2.launches") == before  # the twin is no launch
     stats = compare(img.numpy(), np.asarray(want_img), INTERPRET)
     assert stats["ok"], stats
     for got, want in ((res, want_res), (res2, want_res2)):

@@ -46,6 +46,7 @@ from bevy_raytrace_tpu_torch.inverse import make_fast_renderer, replay_image
 from bevy_raytrace_tpu_torch.kernels import record as k2
 from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
 from bevy_raytrace_tpu_torch.parity import COMPILED, compare
+from bevy_raytrace_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 set_default_device("cpu")  # the port defaults to the CUDA device
@@ -88,9 +89,9 @@ def test_twin_matches_tpu_kernel(name, second):
     want = j_sweep_record(jscene, jcam, JConfig(**KW), 1, interpret=True,
                           record_second=second)
     scene, cam = scene_from_reference(jscene), camera_from_reference(jcam)
-    before = k4.sweep_record_frame.launches
+    before = spans.counter("k4.launches")
     got = k4.render_sweep_record(scene, cam, cfg, 1, record_second=second)
-    assert k4.sweep_record_frame.launches == before  # the twin is no launch
+    assert spans.counter("k4.launches") == before  # the twin is no launch
     assert len(got) == len(want) == (3 if second else 2)
     stats = compare(got[0].numpy(), np.asarray(want[0]), COMPILED)
     assert stats["ok"], stats
@@ -195,9 +196,9 @@ def test_sweep_fast_renderer_grads_match_jax():
     sc = dataclasses.replace(
         scene, centers=params[0], radii=params[1],
         materials=dataclasses.replace(scene.materials, albedo=params[2]))
-    before = k4.sweep_record_frame.launches
+    before = spans.counter("k4.launches")
     img = make_fast_renderer(cfg, forward="sweep")(sc, cam, 0)
-    assert k4.sweep_record_frame.launches == before  # CPU: the twin
+    assert spans.counter("k4.launches") == before  # CPU: the twin
     # The fast renderer's value is K4's image.
     k4_img, _, _ = k4.render_sweep_record(scene, cam, cfg, 0,
                                           record_second=True)
