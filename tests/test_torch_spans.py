@@ -91,6 +91,26 @@ def test_session_frame_and_camera_spans(recorded):
     assert all(s.t0_ns < s.t1_ns for s in recs)
 
 
+@pytest.mark.parametrize("pose,counted", [
+    (((0.0, 1.0, 4.0), (0.0, 0.0, 0.0)), "camera.look_at_host"),
+    ((torch.tensor([0.0, 1.0, 4.0]), (0.0, 0.0, 0.0)),
+     "camera.look_at_device")])
+def test_camera_span_covers_either_path_with_its_frame(recorded, pose,
+                                                       counted):
+    """The host-built camera and the tensor path each run inside one span
+    `camera.look_at`, which takes the enclosing span's frame, and count
+    their path."""
+    spans.reset_counters("camera.")
+    with _profiled():
+        with spans.span("outer", frame=5):
+            Camera.look_at(*pose, aspect=CFG.aspect)
+    recs = spans.spans()
+    assert [(s.name, s.parent, s.frame) for s in recs] == [
+        ("outer", None, 5), ("camera.look_at", 0, 5)]
+    assert recs[0].t0_ns <= recs[1].t0_ns < recs[1].t1_ns <= recs[0].t1_ns
+    assert spans.counters("camera.") == {counted: 1}
+
+
 def test_k1_spans_nest_under_the_enclosing_span(recorded):
     """A probe frame's two K1 passes and a cached frame's one: each pass
     its tables, launch (the twin here) and scatter, in turn, inside the
