@@ -1,4 +1,5 @@
-"""Faults that a render cell's timed path can have, planted in the program.
+"""Faults that a render cell's timed path can have, planted in the program:
+the `session` runner's FAULTS.
 
 Each wraps the session that the window drives, so that the run measures
 and checks it as it would the program: the CPU tests plant them in the
@@ -88,10 +89,6 @@ def _wrap(kind):
     return plant
 
 
+# The session runner's FAULTS: name -> plant(make_session) -> make_session.
 FAULTS = {"stale": _wrap(_Stale), "half": _half, "bright": _wrap(_Bright),
           "block": _wrap(_Block)}
-
-
-def plant(name: str, make_session):
-    """`make_session(config, device)` with the fault `name` planted."""
-    return FAULTS[name](make_session)

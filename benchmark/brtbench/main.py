@@ -7,17 +7,41 @@ and the breakdown.  Each metric is read from the run's record by
 `benchmark/metrics/<name>.py`; a per-layer reader that finds nothing to
 read returns None and the metric is left out.  `setup_s` runs from the top
 of `run.py` (the interpreter's own start, some tens of milliseconds, is
-not in it) to the first timed frame.
+not in it) to the first timed item of work.
 
-A mix's runner is `benchmark/runners/<runner>.py`.  It names the host
-steps of one item of its work (a frame, an optimizer step) in `STEPS`, and
-its `run(cell, seed, seconds, trace, device, t_start, make_session=,
-sync=)` returns a record that holds at least `setup_s`, `window_s`,
-`attempted`, `failed`, `correct`, `checks` ([(name, value, limit)]),
-`stats`, `latencies_s` (one an item), `marks` (int64 [items, len(STEPS) +
-1]: when each step began, and when the last ended), `setup_parts`,
-`memory_peak_bytes`, `trace` (tracing.Trace or None), `reduce_s` and
-`check_s`; the metric readers read the rest.
+A mix's runner is `benchmark/runners/<runner>.py`, found by the name the
+mix gives.  Everything that is particular to one kind of work and its check
+is the runner's, so that a cell of a new kind is new files only.  A runner
+module declares:
+
+- `STEPS`: the host steps of one item of its work (a frame, an optimizer
+  step), in order;
+- `NUMBERS`: the names of the numbers its check compares, in the order the
+  record's `checks` lists them; a cell file's `limits` has exactly these
+  keys;
+- `FAULTS`: {name: plant(make_session) -> make_session}, the faults its
+  timed path can have, each of which its check must find
+  (`readings.py --fault`);
+- `validate(cell)`: raises ValueError on a cell file or mix it cannot run;
+  `run` calls it before any set-up;
+- `default_session(config, device)`: the program's session on the card;
+- `run(cell, seed, seconds, trace, device, t_start, make_session=,
+  sync=, control=False)`: one run.  It returns a record that holds at
+  least `setup_s`, `window_s`, `attempted`, `failed`, `correct`, `checks`
+  ([(name, value, limit)] in `NUMBERS`' order), `stats` (each of
+  `NUMBERS` by name), with `control` `control_stats` (the same numbers of
+  the control put in the program's place), `latencies_s` (one an item),
+  `marks` (int64 [items, len(STEPS) + 1]: when each step began, and when
+  the last ended), `setup_parts`, `memory_peak_bytes`, `trace`
+  (tracing.Trace or None; a Trace when traced), `reduce_s` and `check_s`;
+  the metric readers read the rest.
+
+Its CPU rehearsal is `benchmark/tests/rehearse_<runner>.py` (spec.
+rehearsal), which gives `tiny_cell(name, fault=None)` (the cell at a size
+the CPU holds, at the size a fault needs to show), `make_session` (a
+session of the program's plain paths on CPU tensors), `sync()` and
+`trace(monkeypatch, runner)` (what a traced run on the CPU needs); the
+harness's generic tests drive every cell through it.
 """
 
 from __future__ import annotations

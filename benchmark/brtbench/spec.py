@@ -4,9 +4,11 @@ A cell `<config>.<traffic>` is an entry of `workloads`.  Its configuration
 is the file its `configs` entry names; its traffic mix is
 `benchmark/traffic/<traffic>.json`; what its correctness check compares and
 the limits it holds are `benchmark/cells/<cell>.json`.  A traffic mix names
-its runner, `benchmark/runners/<runner>.py`; a metric is read by
-`benchmark/metrics/<metric>.py`.  So a new cell, mix, configuration or
-metric is a new file and an entry, and no existing file changes.
+its runner, `benchmark/runners/<runner>.py` (the contract is in
+brtbench/main.py), whose CPU rehearsal is
+`benchmark/tests/rehearse_<runner>.py`; a metric is read by
+`benchmark/metrics/<metric>.py`.  So a new cell, mix, configuration,
+runner or metric is a new file and an entry, and no existing file changes.
 """
 
 from __future__ import annotations
@@ -74,9 +76,16 @@ def load_cell(name: str, bench: dict = None, root: Path = ROOT) -> Cell:
 
 
 def runner(name: str, root: Path = ROOT):
-    """The module that runs a mix's frames: `benchmark/runners/<name>.py`."""
+    """The module that runs a mix's items: `benchmark/runners/<name>.py`."""
     return load_module(root / "benchmark" / "runners" / f"{name}.py",
                        f"brtbench_runner_{name}")
+
+
+def rehearsal(name: str, root: Path = ROOT):
+    """The CPU rehearsal of the runner `name`:
+    `benchmark/tests/rehearse_<name>.py`."""
+    return load_module(root / "benchmark" / "tests" / f"rehearse_{name}.py",
+                       f"brtbench_rehearse_{name}")
 
 
 def reader(metric: str, root: Path = ROOT):

@@ -1,5 +1,6 @@
-"""rays_per_s: camera paths (width x height x spp) of every frame completed
-in the window, over the window's seconds."""
+"""rays_per_s: camera paths of every item completed in the window (a
+frame, or an optimizer step's render and gradient: width x height x spp
+each), over the window's seconds."""
 
 
 def read(run):

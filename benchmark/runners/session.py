@@ -19,7 +19,9 @@ kept frame's pixels from the benchmark's own scene arrays and poses.
 A mix for this runner holds `runner`, `samples_per_pixel`,
 `warmup_frames` and `camera` (see brtbench/traffic.py), and nothing else:
 a key it does not read is refused, so that no mix asks for traffic (other
-clients, an open loop) that this runner would not send.
+clients, an open loop) that this runner would not send.  Its check is the
+image comparison of brtbench/compare.py, its faults those of
+brtbench/faults.py, its CPU rehearsal benchmark/tests/rehearse_session.py.
 """
 
 from __future__ import annotations
@@ -30,12 +32,14 @@ import time
 import numpy as np
 import torch
 
-from brtbench import compare, reference, scene_gen, traffic
+from brtbench import compare, faults, reference, scene_gen, traffic
 from brtbench.tracing import launch_marker, profiler, reduce
 
 # The host steps of a frame, in order; a frame's marks are when each began
 # and when the last ended (tracing.reduce labels the idle gaps by them).
 STEPS = ("camera", "render_frame", "synchronize")
+NUMBERS = compare.NUMBERS
+FAULTS = faults.FAULTS
 MIX_KEYS = {"runner", "samples_per_pixel", "warmup_frames", "camera"}
 
 
@@ -67,6 +71,27 @@ class Record:
     check_s: float = 0.0  # seconds the reference took
 
 
+def validate(cell) -> None:
+    """Raise ValueError on a cell this runner cannot run: a mix key it does
+    not read, limits other than the image check's numbers, no sample or
+    bounce a path, or more checked pixels than a frame has."""
+    config, mix, check = cell.config, cell.traffic, cell.check
+    unknown = set(mix) - MIX_KEYS
+    if unknown:
+        raise ValueError(f"traffic mix {cell.traffic_name!r}: the session "
+                         f"runner reads no {sorted(unknown)}")
+    if set(check["limits"]) != set(NUMBERS):
+        raise ValueError(f"cell {cell.name!r}: limits "
+                         f"{sorted(check['limits'])}, the image check "
+                         f"compares {list(NUMBERS)}")
+    if traffic.samples_per_pixel(mix, config) < 1 or config["max_depth"] < 1:
+        raise ValueError(f"cell {cell.name!r}: a path needs a sample and a "
+                         "bounce")
+    if check["pixels"] > config["width"] * config["height"]:
+        raise ValueError(f"cell {cell.name!r}: {check['pixels']} checked "
+                         "pixels, more than a frame has")
+
+
 def default_session(cfg, device):
     from bevy_raytrace_tpu_torch.wavefront import Renderer
 
@@ -90,11 +115,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     from bevy_raytrace_tpu_torch import Camera, RenderConfig
     from bevy_raytrace_tpu_torch.core.types import make_scene
 
+    validate(cell)
     config, mix = cell.config, cell.traffic
-    unknown = set(mix) - MIX_KEYS
-    if unknown:
-        raise ValueError(f"traffic mix {cell.traffic_name!r}: the session "
-                         f"runner reads no {sorted(unknown)}")
     device = torch.device(device)
     parts = {"imports": time.perf_counter() - t_start}
     sync = sync or (lambda: torch.cuda.synchronize(device))

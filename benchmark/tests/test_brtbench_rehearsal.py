@@ -1,6 +1,7 @@
-"""A tiny run of each cell on the CPU through the port's plain paths (K1's
-twin in the card's session schedule), the control, each fault a render cell
-can have, and the trace's reduction.
+"""A tiny run of each cell on the CPU through its runner's rehearsal
+(`benchmark/tests/rehearse_<runner>.py`: for `session`, the port's plain
+paths, K1's twin in the card's session schedule), the control, each fault
+the cell's runner names, and the trace's reduction.
 
 The runs skip the harness's look for a card and drive the rest: the
 runner, the check against the plain reference with the cell's own limits,
@@ -17,27 +18,38 @@ import pytest
 import torch
 
 import readings
-from brtbench import compare, faults, main, spec, tracing
-from twin_session import TwinSession, no_sync, tiny_cell
+from brtbench import main, spec, tracing
 
 CELLS = [w["name"] for w in json.loads(
     (spec.ROOT / "BENCHMARK.json").read_text())["workloads"]]
 SEED = 2**31 + 101
 
 
-def _tiny(name, pixels=96):
-    # 256 samples a frame are too many for a CPU test; 4 keep the shape.
-    return tiny_cell(name, spp=4 if name.endswith(".render") else None,
-                     frames=2, pixels=pixels)
+KINDS = {name: spec.load_cell(name).traffic["runner"] for name in CELLS}
+FAULT_CASES = [pytest.param(name, fault, id=f"{name}-{fault}")
+               for name in CELLS
+               for fault in sorted(spec.runner(KINDS[name]).FAULTS)]
+SESSION_CELLS = [name for name in CELLS if KINDS[name] == "session"]
 
 
-def _run(monkeypatch, capsys, name, session=TwinSession, trace=0,
-         pixels=96):
-    cell = _tiny(name, pixels)
+def _runner(name):
+    """The cell's runner and its CPU rehearsal."""
+    return spec.runner(KINDS[name]), spec.rehearsal(KINDS[name])
+
+
+def _run(monkeypatch, capsys, name, fault=None, trace=0):
+    runner, helper = _runner(name)
+    cell = helper.tiny_cell(name, fault)
     monkeypatch.setattr(spec, "load_cell", lambda n, *a, **k: cell)
+    if trace:
+        helper.trace(monkeypatch, runner)
+        monkeypatch.setattr(spec, "runner", lambda n, *a, **k: runner)
+    session = helper.make_session
+    if fault is not None:
+        session = runner.FAULTS[fault](session)
     rc = main.main(["--workload", name, "--seed", str(SEED), "--seconds",
                     "0.2", "--trace", str(trace)], time.perf_counter(),
-                   device="cpu", make_session=session, sync=no_sync)
+                   device="cpu", make_session=session, sync=helper.sync)
     assert rc == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
@@ -51,7 +63,21 @@ def test_cell_rehearsal_is_correct(monkeypatch, capsys, name):
     assert set(out["metrics"]) == {m["name"] for m in cell.end_to_end}
     assert all(v["value"] > 0 for v in out["metrics"].values())
     assert list(out)[-1] == "checks"
-    assert set(out["checks"]) == set(compare.NUMBERS)
+    assert list(out["checks"]) == list(_runner(name)[0].NUMBERS)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_traced_rehearsal_is_correct(monkeypatch, capsys, name):
+    """--trace 1: the same check, the cell's per-layer metrics that found
+    something to read, the traced window and the breakdown."""
+    out = _run(monkeypatch, capsys, name, trace=1)
+    assert out["correct"] is True and out["failed"] == 0
+    cell = spec.load_cell(name)
+    assert set(out["metrics"]) <= {m["name"] for m in cell.per_layer}
+    assert out["device"]["window_s"] > 0 and out["device"]["busy_s"] >= 0
+    assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
+    assert list(out)[-1] == "checks"
+    assert list(out["checks"]) == list(_runner(name)[0].NUMBERS)
 
 
 def test_no_card_no_result(monkeypatch, capsys):
@@ -65,47 +91,52 @@ def test_jax_loaded_no_result(monkeypatch, capsys):
     import sys
 
     monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
-    cell = _tiny(CELLS[1])
+    runner, helper = _runner(CELLS[1])
+    cell = helper.tiny_cell(CELLS[1])
     monkeypatch.setattr(spec, "load_cell", lambda n, *a, **k: cell)
     rc = main.main(["--workload", CELLS[1], "--seed", "3", "--seconds",
                     "0.1", "--trace", "0"], time.perf_counter(),
-                   device="cpu", make_session=TwinSession, sync=no_sync)
+                   device="cpu", make_session=helper.make_session,
+                   sync=helper.sync)
     captured = capsys.readouterr()
     assert rc != 0 and captured.out == "" and "jax" in captured.err
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_control_fails_the_limits(monkeypatch, capsys, name):
-    """The plain reference at bfloat16 in the program's place fails the
-    cell's limits; the program passes them on the same pixels."""
-    cell = _tiny(name)
+    """The control in the program's place (for `session`, the plain
+    reference at bfloat16) fails one of the cell's limits or more; the
+    program passes them on the same inputs."""
+    runner, helper = _runner(name)
+    cell = helper.tiny_cell(name)
     monkeypatch.setattr(spec, "load_cell", lambda n, *a, **k: cell)
     assert readings.main(["--workload", name, "--seeds", f"{SEED},7",
                           "--seconds", "0.1"], device="cpu",
-                         make_session=TwinSession, sync=no_sync) == 0
+                         make_session=helper.make_session,
+                         sync=helper.sync) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    limits = cell.check["limits"]
+    assert len(lines) == 3
     for ln in lines[:-1]:
         assert ln["correct"] is True
-        assert not compare.judge(ln["control"], cell.check["limits"])[0]
+        assert not all(ln["control"][k] <= limits[k]
+                       for k in runner.NUMBERS)
 
 
-@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name,fault", FAULT_CASES)
 def test_each_fault_is_not_correct(monkeypatch, capsys, name, fault):
-    """Each fault of brtbench/faults.py planted in the program's session
-    comes out not correct; the block fault on every pixel of the tiny
-    frame, where its band is two rows of 24 (8%)."""
-    pixels = 32 * 24 if fault == "block" else 96
-    out = _run(monkeypatch, capsys, name,
-               session=faults.plant(fault, TwinSession), pixels=pixels)
+    """Each fault of the cell's runner planted in the program's session
+    comes out not correct, at the size the rehearsal gives that fault (the
+    block fault on every pixel of the tiny frame, where its band is two
+    rows of 24, 8%)."""
+    out = _run(monkeypatch, capsys, name, fault=fault)
     assert out["correct"] is False
 
 
-def test_block_fault_moves_no_median_and_no_bias(monkeypatch, capsys):
+@pytest.mark.parametrize("name", SESSION_CELLS)
+def test_block_fault_moves_no_median_and_no_bias(monkeypatch, capsys, name):
     """The block fault is caught by the share of pixels off, alone."""
-    name = CELLS[0]
-    out = _run(monkeypatch, capsys, name,
-               session=faults.plant("block", TwinSession), pixels=32 * 24)
+    out = _run(monkeypatch, capsys, name, fault="block")
     limits = spec.load_cell(name).check["limits"]
     checks = {k: v["value"] for k, v in out["checks"].items()}
     assert checks["bad_frac"] > limits["bad_frac"]
@@ -113,30 +144,65 @@ def test_block_fault_moves_no_median_and_no_bias(monkeypatch, capsys):
     assert checks["mean_bias"] <= limits["mean_bias"]
 
 
-def test_mix_with_a_key_the_runner_does_not_read_is_refused(monkeypatch):
-    cell = _tiny(CELLS[0])
+@pytest.mark.parametrize("name", SESSION_CELLS)
+def test_mix_with_a_key_the_runner_does_not_read_is_refused(name):
+    runner, helper = _runner(name)
+    cell = helper.tiny_cell(name)
     cell = dataclasses.replace(cell, traffic=dict(cell.traffic, clients=4))
-    runner = spec.runner(cell.traffic["runner"])
     with pytest.raises(ValueError, match="clients"):
         runner.run(cell, SEED, 0.1, False, "cpu", time.perf_counter(),
-                   make_session=TwinSession, sync=no_sync)
+                   make_session=helper.make_session, sync=helper.sync)
 
 
-@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
-def test_readings_of_a_planted_fault(monkeypatch, capsys, fault):
-    """`readings.py --fault` plants the fault in the program's session, as
-    on the card at the cell's size, and reads every run not correct."""
-    name = CELLS[0]
-    cell = _tiny(name, pixels=32 * 24)
+@pytest.mark.parametrize("name", SESSION_CELLS)
+@pytest.mark.parametrize("change,match", [
+    (lambda c: dict(c, check=dict(c["check"], limits=dict(
+        c["check"]["limits"], grad_max_rel=1e-3))), "limits"),
+    (lambda c: dict(c, check=dict(c["check"], pixels=32 * 24 + 1)),
+     "more than a frame"),
+    (lambda c: dict(c, traffic=dict(c["traffic"], samples_per_pixel=0)),
+     "a sample"),
+    (lambda c: dict(c, config=dict(c["config"], max_depth=0)), "a sample"),
+], ids=["limits", "pixels", "spp", "depth"])
+def test_a_cell_the_session_runner_cannot_run_is_refused(name, change,
+                                                         match):
+    """The image check's numbers alone, as many checked pixels as a frame
+    has at most, and a sample and a bounce a path, or no run."""
+    runner, helper = _runner(name)
+    cell = helper.tiny_cell(name)
+    cell = dataclasses.replace(cell, **change(dataclasses.asdict(cell)))
+    with pytest.raises(ValueError, match=match):
+        runner.validate(cell)
+
+
+@pytest.mark.parametrize("name,fault", FAULT_CASES)
+def test_readings_of_a_planted_fault(monkeypatch, capsys, name, fault):
+    """`readings.py --fault` plants the fault of the cell's runner in the
+    program's session, as on the card at the cell's size, and reads every
+    run not correct."""
+    runner, helper = _runner(name)
+    cell = helper.tiny_cell(name, fault)
     monkeypatch.setattr(spec, "load_cell", lambda n, *a, **k: cell)
     assert readings.main(["--workload", name, "--seeds", f"{SEED},7",
                           "--seconds", "0.1", "--fault", fault],
-                         device="cpu", make_session=TwinSession,
-                         sync=no_sync) == 0
+                         device="cpu", make_session=helper.make_session,
+                         sync=helper.sync) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [ln["correct"] for ln in lines[:-1]] == [False, False]
     assert lines[-1]["fault"] == fault
     assert lines[-1]["every_run_not_correct"] is True
+
+
+def test_readings_refuses_a_fault_the_runner_does_not_have(monkeypatch,
+                                                            capsys):
+    runner, helper = _runner(CELLS[0])
+    cell = helper.tiny_cell(CELLS[0])
+    monkeypatch.setattr(spec, "load_cell", lambda n, *a, **k: cell)
+    with pytest.raises(SystemExit) as exc:
+        readings.main(["--workload", CELLS[0], "--seeds", "1", "--fault",
+                       "no_such_fault"], device="cpu")
+    assert exc.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 class _FakeEvent:

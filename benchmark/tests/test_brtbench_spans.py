@@ -8,13 +8,12 @@ import types
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
-from brtbench import spec, tracing
+import rehearse_session
+from brtbench import spec
 from brtbench.spans import per_frame_ms
 from bevy_raytrace_tpu_torch.utils import spans
 from bevy_raytrace_tpu_torch.utils.spans import SpanRecord
-from twin_session import TwinSession, no_sync, tiny_cell
 
 CELL = "bevy_reference.realtime"
 SPAN_METRICS = ["camera_ms.realtime", "session_self_ms.realtime",
@@ -64,17 +63,15 @@ def test_spans_share_the_clock_of_the_runners_marks(monkeypatch):
     size: every frame's K1 spans lie inside that frame's `render_frame`
     step, and its camera span inside its `camera` step."""
     runner = spec.runner("session")
-    monkeypatch.setattr(runner, "profiler", lambda: profile(
-        activities=[ProfilerActivity.CPU]))
-    monkeypatch.setattr(runner, "launch_marker",
-                        lambda device: time.perf_counter_ns())
-    monkeypatch.setattr(runner, "reduce", lambda prof, marker_ns, marks,
-                        steps: tracing.Trace(1.0, 0.0, {}, {}))
+    rehearse_session.trace(monkeypatch, runner)
     spans.clear_spans()
     try:
-        rec = runner.run(tiny_cell(CELL, frames=1, pixels=32), 2**31 + 7,
-                         0.2, True, torch.device("cpu"), time.perf_counter(),
-                         make_session=TwinSession, sync=no_sync)
+        rec = runner.run(rehearse_session.tiny_cell(CELL, frames=1,
+                                                    pixels=32),
+                         2**31 + 7, 0.2, True, torch.device("cpu"),
+                         time.perf_counter(),
+                         make_session=rehearse_session.make_session,
+                         sync=rehearse_session.sync)
         recs = spans.spans()
         values = {name: spec.reader(name)(rec) for name in SPAN_METRICS}
     finally:

@@ -2,8 +2,11 @@
 new cells, mixes and metrics are new files that the harness finds."""
 
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -67,18 +70,20 @@ def test_every_metric_is_reported_and_read():
 
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
 def test_every_cell_loads_by_name(name):
+    """A cell loads by its name, its runner by the mix's, and the runner
+    takes the cell: the limits are its check's numbers, and what else it
+    needs of a cell (for `session`: a sample and a bounce a path, no more
+    checked pixels than a frame has) holds."""
     cell = spec.load_cell(name)
     work = {w["name"]: w for w in BENCH["workloads"]}[name]
     assert name == f"{work['config']}.{work['traffic']}"
     assert cell.chips == work["chips"] == 1
     assert cell.config["name"] == work["config"]
-    assert set(cell.check["limits"]) == {"median_err", "bad_frac",
-                                         "mean_bias"}
-    spec.runner(cell.traffic["runner"])
-    spp = traffic.samples_per_pixel(cell.traffic, cell.config)
-    assert spp >= 1 and cell.config["max_depth"] >= 1
-    assert cell.check["pixels"] <= cell.config["width"] * cell.config[
-        "height"]
+    runner = spec.runner(cell.traffic["runner"])
+    assert set(cell.check["limits"]) == set(runner.NUMBERS)
+    assert runner.FAULTS and runner.STEPS
+    runner.validate(cell)
+    spec.rehearsal(cell.traffic["runner"])
 
 
 @pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
@@ -122,3 +127,65 @@ def test_new_files_are_found_without_editing_any(tmp_path):
         type("R", (), {"frames": 7})()) == 7
     for p, data in before.items():
         assert p.read_bytes() == data
+
+
+def test_a_runner_of_another_kind_is_new_files_only(tmp_path):
+    """A cell of a runner whose items are not frames (`another_runner/`:
+    gradient steps of a toy least-squares problem, with check numbers,
+    faults, control and CPU rehearsal of its own) added to a copy of the
+    benchmark as new files and appended entries: the copy's generic tests
+    take it through `main.main` (trace 0 and 1), `readings.main` with the
+    control and with each of its faults, and its loading and validation,
+    and no file that was there changes."""
+    bench_dir = tmp_path / "benchmark"
+    shutil.copytree(ROOT / "benchmark", bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in bench_dir.rglob("*") if p.is_file()}
+    toy = ROOT / "benchmark" / "tests" / "another_runner"
+    entries = json.loads((toy / "entries.json").read_text())
+    for src in toy.rglob("*"):
+        if src.is_file() and src.suffix in (".py", ".json") and (
+                src.name != "entries.json"):
+            dst = bench_dir / src.relative_to(toy)
+            assert not dst.exists(), dst
+            dst.write_bytes(src.read_bytes())
+    bench = json.loads(json.dumps(BENCH))
+    bench["workloads"] += entries["workloads"]
+    bench["per_layer"] += entries["per_layer"]
+    for m in bench["end_to_end"]:
+        m.get("workloads", []).extend(entries["reports"].get(m["name"], []))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+    cell = entries["workloads"][0]["name"]
+    runner = spec.runner("lsq", root=tmp_path)
+    assert set(runner.NUMBERS).isdisjoint({"median_err", "bad_frac",
+                                           "mean_bias"})
+
+    spec_cases = ["test_every_metric_is_reported_and_read",
+                  "test_names_units_and_entries",
+                  "test_top_level_keys_and_limits"]
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", str(bench_dir / "tests"), "-v",
+         "-p", "no:cacheprovider", f"--rootdir={tmp_path}", "-k",
+         " or ".join([cell] + spec_cases)],
+        cwd=tmp_path, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))  # the port, for imports
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    passed = set(re.findall(r"::(\S+) PASSED", out.stdout))
+    faults = sorted(runner.FAULTS)
+    want = {f"test_cell_rehearsal_is_correct[{cell}]",
+            f"test_traced_rehearsal_is_correct[{cell}]",
+            f"test_control_fails_the_limits[{cell}]",
+            f"test_every_cell_loads_by_name[{cell}]"}
+    want |= {f"test_each_fault_is_not_correct[{cell}-{f}]" for f in faults}
+    want |= {f"test_readings_of_a_planted_fault[{cell}-{f}]" for f in faults}
+    assert want <= passed, sorted(want - passed)
+    assert {t.split("[")[0] for t in passed} >= set(spec_cases)
+    for p, data in before.items():
+        assert p.read_bytes() == data, p
+    grown = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    grown["workloads"] = grown["workloads"][:len(BENCH["workloads"])]
+    grown["per_layer"] = grown["per_layer"][:len(BENCH["per_layer"])]
+    for m, was in zip(grown["end_to_end"], BENCH["end_to_end"]):
+        if "workloads" in m:
+            m["workloads"] = m["workloads"][:len(was["workloads"])]
+    assert grown == BENCH
