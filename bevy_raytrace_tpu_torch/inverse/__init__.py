@@ -6,6 +6,7 @@ from bevy_raytrace_tpu_torch.inverse.fast_grad import (
 from bevy_raytrace_tpu_torch.inverse.optimize import (
     InverseProblem,
     optimize,
+    optimize_step,
 )
 from bevy_raytrace_tpu_torch.inverse.shard_grad import (
     make_fast_renderer_sharded,
@@ -16,6 +17,7 @@ __all__ = [
     "render_loss",
     "InverseProblem",
     "optimize",
+    "optimize_step",
     "make_fast_renderer",
     "make_fast_renderer_sharded",
     "replay_image",

@@ -28,6 +28,13 @@ its sphere loop but still records SCENE indices (`kernels/record.py`), so
 the replay reads the unpermuted table with or without a plan: the
 reference's `_permuted_table` is `_scene_table` here, and K3 takes no
 `sphere_perm`.
+
+Spans (`utils/spans.py`, while a profiler runs): `inverse.record` covers a
+render of `make_fast_renderer`'s function (the table gather, `Camera.pack`,
+the recorder's host side, with a plan its cluster bounds, and its launch);
+`inverse.replay` covers the backward of that render (the replay's host side
+and launch, and the cotangents' reduction).  Autograd's gather of the table
+cotangent to the scene's leaves runs after it, outside both.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from bevy_raytrace_tpu_torch.kernels.common import (
     _scatter_vector,
 )
 from bevy_raytrace_tpu_torch.rng.pcg import uniform4
+from bevy_raytrace_tpu_torch.utils.spans import span
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 
 # Above this many stored bounce-state bytes the replay is checkpointed per
@@ -280,6 +288,11 @@ class _FastRender(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with span("inverse.replay"):
+            return _FastRender._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         from bevy_raytrace_tpu_torch.kernels.replay_grad import (
             replay_grad,
             replay_grad_plain,
@@ -374,7 +387,9 @@ def make_fast_renderer(config: RenderConfig, backward: str = "kernel",
                  config.edge_softness > 0.0, forward, clusters)
 
     def render_fast(scene, camera, frame: int = 0):
-        return _FastRender.apply(_scene_table(scene).contiguous(),
-                                 camera.pack().contiguous(), spec, int(frame))
+        with span("inverse.record"):
+            return _FastRender.apply(_scene_table(scene).contiguous(),
+                                     camera.pack().contiguous(), spec,
+                                     int(frame))
 
     return render_fast

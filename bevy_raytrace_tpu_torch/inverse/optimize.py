@@ -6,15 +6,19 @@ material albedo/fuzz/ior) from a target image by gradient descent on
 `render_loss`, drawing fresh Monte-Carlo samples every step (frame == step).
 
 The optimizer is Adam (`torch.optim.Adam` at optax.adam's defaults: b1 0.9,
-b2 0.999, eps 1e-8) unless `optimizer=` gives another; parameters are leaf
-tensors on the scene's device.  The checkpoint is an .npz of plain arrays
-keyed by parameter name: the step, the parameters, and every tensor or
-number of each parameter's optimizer state as `<state key>.<name>` (Adam's:
-exp_avg, exp_avg_sq and step).  Divergences from the reference: its
-checkpoint pickles a JAX treedef (which needs JAX to load), here nothing is
-pickled; its `optimizer=` is an optax transformation, here it is a factory
-`params -> torch.optim.Optimizer`, since a torch optimizer binds to its
-parameters.
+b2 0.999, eps 1e-8: `ADAM_BETAS`, `ADAM_EPS`) unless `optimizer=` gives
+another; parameters are leaf tensors on the scene's device
+(`leaf_params`).  One step of the loop is `optimize_step`, which a caller
+that times or drives steps one at a time calls as `optimize` does; the
+span `inverse.update` covers its optimizer update and the counter
+`inverse.steps` counts its steps (`utils/spans.py`).  The checkpoint is an
+.npz of plain arrays keyed by parameter name: the step, the parameters,
+and every tensor or number of each parameter's optimizer state as
+`<state key>.<name>` (Adam's: exp_avg, exp_avg_sq and step).
+Divergences from the reference: its checkpoint pickles a JAX treedef
+(which needs JAX to load), here nothing is pickled; its `optimizer=` is an
+optax transformation, here it is a factory `params ->
+torch.optim.Optimizer`, since a torch optimizer binds to its parameters.
 """
 
 from __future__ import annotations
@@ -30,6 +34,10 @@ from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.core.types import Scene
 from bevy_raytrace_tpu_torch.device import resolve
 from bevy_raytrace_tpu_torch.inverse.loss import render_loss
+from bevy_raytrace_tpu_torch.utils.spans import count, span
+
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
 
 # Leaves of Scene that may be optimized, addressed by short name.
 _SCENE_LEAVES = {
@@ -59,6 +67,21 @@ def _set_scene_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
 def _get_scene_params(scene: Scene,
                       names: Sequence[str]) -> Dict[str, torch.Tensor]:
     return {n: _SCENE_LEAVES[n](scene) for n in names}
+
+
+def leaf_params(scene: Scene,
+                names: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """Copies of the scene's parameters `names` as leaf tensors that
+    require grad: what `optimize` optimizes."""
+    return {n: p.detach().clone().requires_grad_(True)
+            for n, p in _get_scene_params(scene, names).items()}
+
+
+def adam(learning_rate: float = 1e-2):
+    """`optimize`'s default optimizer factory: Adam at `learning_rate`,
+    `ADAM_BETAS` and `ADAM_EPS`."""
+    return lambda ps: torch.optim.Adam(ps, lr=learning_rate,
+                                       betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
 @dataclasses.dataclass
@@ -145,6 +168,21 @@ def _state_keys(make_opt, params: List[torch.Tensor]):
             for p in probe]
 
 
+def optimize_step(problem: InverseProblem, scene: Scene,
+                  params: Dict[str, torch.Tensor], opt, step: int
+                  ) -> torch.Tensor:
+    """One step of `optimize`: the loss at `step` (frame == step), its
+    backward, one update of `opt` over `params`.  Returns the loss,
+    detached, on its device (no wait for the device)."""
+    opt.zero_grad(set_to_none=True)
+    loss = problem.loss_fn(params, scene, step)
+    loss.backward()
+    with span("inverse.update"):
+        opt.step()
+    count("inverse.steps")
+    return loss.detach()
+
+
 def optimize(scene: Scene, problem: InverseProblem, steps: int = 200,
              learning_rate: float = 1e-2,
              optimizer: Optional[Callable[[List[torch.Tensor]],
@@ -163,10 +201,8 @@ def optimize(scene: Scene, problem: InverseProblem, steps: int = 200,
     the optimized scene and the loss history of the steps run in this
     call."""
     names = list(problem.optimizable)
-    params = {n: p.detach().clone().requires_grad_(True)
-              for n, p in _get_scene_params(scene, names).items()}
-    make_opt = optimizer or (lambda ps: torch.optim.Adam(
-        ps, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8))
+    params = leaf_params(scene, names)
+    make_opt = optimizer or adam(learning_rate)
     opt = make_opt([params[n] for n in names])
     step_done = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
@@ -190,11 +226,7 @@ def optimize(scene: Scene, problem: InverseProblem, steps: int = 200,
 
     losses: List[float] = []
     for step in range(step_done, steps):
-        opt.zero_grad(set_to_none=True)
-        loss = problem.loss_fn(params, scene, step)  # frame == step
-        loss.backward()
-        opt.step()
-        losses.append(float(loss.detach()))
+        losses.append(float(optimize_step(problem, scene, params, opt, step)))
         step_done = step + 1
         if callback:
             callback(step, losses[-1])

@@ -26,8 +26,9 @@ The kernels' wrappers count their launches here under dotted names
 (`k1.launches`, `k1.launches_global`, `k1.launches_culled`, `k2.launches`,
 `k2.launches_clustered`, `k3.launches`, `k3.launches_global`,
 `k4.launches`, `k4.launches_global`, `p1.launches` ... `p5.launches`,
-`v1.launches` ... `v3.launches`), and `Camera.look_at` counts the path
-each call took (`camera.look_at_host`, `camera.look_at_device`);
+`v1.launches` ... `v3.launches`), `Camera.look_at` counts the path
+each call took (`camera.look_at_host`, `camera.look_at_device`) and
+`inverse.optimize_step` its steps (`inverse.steps`);
 `counter`, `counters` and `reset_counters` read and zero them.
 """
 

@@ -1,5 +1,7 @@
 """The port's recorder (`utils/spans.py`): spans only while a profiler runs,
-nested by thread and marked with their session frame; counters always."""
+nested by thread and marked with their session frame; counters always.
+The inverse path's spans and step counter (`inverse/fast_grad.py`,
+`inverse/optimize.py`)."""
 
 import sys
 import threading
@@ -12,6 +14,12 @@ from torch.profiler import ProfilerActivity, profile
 from bevy_raytrace_tpu_torch import Camera, RenderConfig
 from bevy_raytrace_tpu_torch import scenes as tsc
 from bevy_raytrace_tpu_torch import set_default_device
+from bevy_raytrace_tpu_torch.inverse import (
+    InverseProblem,
+    make_fast_renderer,
+    optimize_step,
+)
+from bevy_raytrace_tpu_torch.inverse.optimize import adam, leaf_params
 from bevy_raytrace_tpu_torch.kernels.render_lanes import (
     render_mxu,
     render_probed,
@@ -168,3 +176,60 @@ def test_a_span_costs_little_with_no_profiler(recorded):
         best = min(best, (time.perf_counter() - t0) / n)
     assert spans.spans() == []
     assert best < 5e-6, f"{best * 1e6:.3f} us a span"
+
+
+INV_CFG = RenderConfig(width=16, height=12, samples_per_pixel=2, max_depth=3,
+                       edge_softness=0.01)
+INV_SPANS = ["inverse.record", "inverse.replay", "inverse.update"]
+
+
+def _inverse_step():
+    """One optimizer step of the fast path (K2's and K3's twins) -> a
+    function that takes the next."""
+    scene, _ = tsc.baseline_config1_scene()
+    cam = tsc.baseline_config1_camera(INV_CFG.aspect)
+    fast = make_fast_renderer(INV_CFG)
+    with torch.no_grad():
+        target = fast(scene, cam, 50)
+    prob = InverseProblem(INV_CFG, cam, target, ("centers", "albedo"),
+                          lambda s, c, cfg, f: fast(s, c, f))
+    params = leaf_params(scene, prob.optimizable)
+    opt = adam(1e-2)([params[n] for n in prob.optimizable])
+    steps = iter(range(1000))
+    return lambda: optimize_step(prob, scene, params, opt, next(steps))
+
+
+def test_inverse_step_spans_in_order(recorded):
+    """A step renders twice (`inverse.record`: the table, the camera, the
+    recorder), replays both backward (`inverse.replay`) and updates once
+    (`inverse.update`), in that order, each span closed before the next of
+    another name opens."""
+    step = _inverse_step()
+    step()
+    with _profiled():
+        step()
+    recs = spans.spans()
+    assert [s.name for s in recs] == [INV_SPANS[0]] * 2 + [
+        INV_SPANS[1]] * 2 + [INV_SPANS[2]]
+    assert all(s.t0_ns < s.t1_ns for s in recs)
+    for a, b in zip(recs, recs[1:]):
+        assert a.t1_ns <= b.t0_ns
+
+
+def test_inverse_step_records_no_span_without_a_profiler(recorded):
+    step = _inverse_step()
+    step()
+    step()
+    assert spans.spans() == []
+
+
+def test_inverse_steps_are_counted(recorded):
+    """`inverse.steps` counts every step, with or without a profiler."""
+    spans.reset_counters("inverse.")
+    step = _inverse_step()
+    step()
+    with _profiled():
+        step()
+    step()
+    assert spans.counters("inverse.") == {"inverse.steps": 3}
+    spans.reset_counters("inverse.")
