@@ -64,6 +64,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -98,6 +99,11 @@ _NO_BOUND = 1e30
 # The culled bound test's slack in units of u = 2^-24: csrc/k1_render.cu's
 # BRT_K1_CULL_SLACK, which a test holds equal to this.
 CULL_SLACK = 32
+# Scene tables `render_mxu_lanes` keeps for reuse (`_cached_scene_tables`):
+# at most this many (scene tensors, plan) entries, the oldest dropped first.
+MAX_TABLES = 4
+_tables: dict = {}  # ids of the sources -> (sources, versions, tables)
+_tables_lock = threading.Lock()
 
 
 class CullTables(NamedTuple):
@@ -128,7 +134,11 @@ def _scene_tables(scene, plan=None):
     attr, CullTables): the rows gathered into the plan's Morton order
     without its pad slots, the chunks' bounds (bx, by, bz, br^2) and the
     priority rows from the live geometry, and the row -> scene index map
-    and its inverse."""
+    and its inverse.
+
+    Uncached: every call builds new tensors, which the caller owns and may
+    edit.  `render_mxu_lanes` goes through `_cached_scene_tables`, which
+    builds them here once for each state of the scene's tensors."""
     c, r = scene.centers, scene.radii
     if plan is not None:
         check_plan(plan, scene.count)
@@ -153,6 +163,43 @@ def _scene_tables(scene, plan=None):
         torch.zeros_like(r),
     ], dim=1)
     return geom.contiguous(), attr.contiguous()
+
+
+def _cached_scene_tables(scene, plan=None):
+    """`_scene_tables(scene, plan)`, built once for each state of the scene's
+    tensors and shared by every later call that finds them unchanged.
+
+    The key is the identity and `_version` of each of the seven tensors
+    `_scene_tables` reads (an in-place edit bumps the version, a new tensor
+    is another identity) and the plan's identity; reading it costs no
+    device work, no copy and no sync.  The entry holds its tensors and
+    plan, so no id is reused while it lives.  A tensor with no version
+    counter (an inference tensor) is built anew every call.  Counters
+    `k1.tables_built` and `k1.tables_reused` say which happened.  The
+    tables returned are shared: read them, never edit them."""
+    m = scene.materials
+    sources = (scene.centers, scene.radii, scene.material_id, m.albedo,
+               m.kind, m.fuzz, m.ior, plan)
+    try:
+        versions = tuple(t._version for t in sources[:-1])
+    except RuntimeError:  # an inference tensor tracks no version
+        count("k1.tables_built")
+        return _scene_tables(scene, plan)
+    key = tuple(map(id, sources))
+    with _tables_lock:
+        entry = _tables.get(key)
+    if entry is not None and entry[1] == versions:
+        count("k1.tables_reused")
+        return entry[2]
+    # The versions were read before the build: an edit made during it
+    # leaves the entry older than the data, and the next call rebuilds.
+    tables = _scene_tables(scene, plan)
+    with _tables_lock:
+        if key not in _tables and len(_tables) >= MAX_TABLES:
+            del _tables[next(iter(_tables))]
+        _tables[key] = (sources, versions, tables)
+    count("k1.tables_built")
+    return tables
 
 
 # --- the plain twin -----------------------------------------------------
@@ -506,9 +553,20 @@ def render_mxu_lanes(scene, camera, config: RenderConfig, pid_grid, frame=0,
     """Raw lane-slot render: `pid_grid` int32 [rows, 128] holds the
     ABSOLUTE pixel id of each lane.  Returns (fb [p, 3], len [p]) in
     lane-slot order, divided by spp.  `plan` (a `ClusterPlan` of this
-    scene's sphere count) runs the chunk-culled traversal: the same bits."""
+    scene's sphere count) runs the chunk-culled traversal: the same bits.
+
+    K1's sphere tables are reused from an earlier call while none of the
+    scene's seven source tensors (centers, radii, material_id and the
+    materials' albedo, kind, fuzz, ior) has changed and the plan is the
+    same object (`_cached_scene_tables`).  A change is seen as a new tensor
+    or an in-place edit, which bumps the tensor's version counter.  An edit
+    that bypasses the counter is out of contract and renders the old
+    tables: a write through `.data`, through a raw pointer, or through an
+    alias of the memory (DLPack, or a NumPy array under `torch.from_numpy`).
+    Reused tables are read on the calling stream without waiting for the
+    stream that built them: calls on two CUDA streams order themselves."""
     with span("k1.tables"):
-        tables = _scene_tables(scene, plan)
+        tables = _cached_scene_tables(scene, plan)
         cam = camera.pack().contiguous()
         seed = frame_seed(config, frame)
     fb, ln = render_lanes(

@@ -26,9 +26,11 @@ The kernels' wrappers count their launches here under dotted names
 (`k1.launches`, `k1.launches_global`, `k1.launches_culled`, `k2.launches`,
 `k2.launches_clustered`, `k3.launches`, `k3.launches_global`,
 `k4.launches`, `k4.launches_global`, `p1.launches` ... `p5.launches`,
-`v1.launches` ... `v3.launches`), `Camera.look_at` counts the path
-each call took (`camera.look_at_host`, `camera.look_at_device`) and
-`inverse.optimize_step` its steps (`inverse.steps`);
+`v1.launches` ... `v3.launches`), K1's host side whether it built its
+sphere tables or reused them (`k1.tables_built`, `k1.tables_reused`),
+`Camera.look_at` the path each call took (`camera.look_at_host`,
+`camera.look_at_device`) and `inverse.optimize_step` its steps
+(`inverse.steps`);
 `counter`, `counters` and `reset_counters` read and zero them.
 """
 

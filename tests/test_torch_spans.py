@@ -138,6 +138,28 @@ def test_k1_spans_nest_under_the_enclosing_span(recorded):
     assert recs[0].t0_ns <= recs[1].t0_ns and recs[-1].t1_ns <= recs[0].t1_ns
 
 
+def test_k1_tables_span_each_frame_when_the_tables_are_reused(recorded):
+    """A session's frames after the first reuse K1's tables (K1's twin on
+    this process's one stripe); each still records one `k1.tables` inside
+    its `session.frame`, so `tables_ms.realtime` keeps reading the span."""
+    scene, _ = tsc.baseline_config2_scene()
+    cam = tsc.baseline_config2_camera(CFG.aspect)
+    r = Renderer(CFG, backend="cuda-sharded", device="cpu")
+    r.render_frame(scene, cam)
+    spans.reset_counters("k1.tables")
+    with _profiled():
+        for _ in range(3):
+            r.render_frame(scene, cam)
+    assert spans.counters("k1.tables") == {"k1.tables_reused": 3}
+    recs = spans.spans()
+    frames = [(i, s.frame) for i, s in enumerate(recs)
+              if s.name == "session.frame"]
+    assert [f for _, f in frames] == [1, 2, 3]
+    assert [(s.parent, s.frame) for s in recs if s.name == "k1.tables"
+            ] == frames
+    assert all(s.t0_ns < s.t1_ns for s in recs)
+
+
 def test_a_span_on_another_thread_takes_no_main_thread_parent(recorded):
     def work():
         with spans.span("worker"):
