@@ -308,7 +308,7 @@ def device_info(device):
     CPU."""
     if device.type != "cuda":
         return None
-    from bevy_raytrace_tpu_torch.profile_grad import smi_line
+    from bevy_raytrace_tpu_torch.device import smi_line
 
     name, limit = (f.strip() for f in smi_line().rsplit(",", 1))
     return {"name": name, "power_limit_w": float(limit.split()[0])}

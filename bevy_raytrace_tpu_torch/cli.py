@@ -494,22 +494,27 @@ def cmd_serve(args):
 
 def cmd_inverse(args):
     """The inverse-rendering demo: perturb the config1 scene (the ball's
-    center and albedo), recover it by gradient descent on the image."""
-    import dataclasses
-
+    center and albedo, inverse/recovery.py), recover it by gradient descent
+    on the image."""
     import torch
 
-    from bevy_raytrace_tpu_torch.inverse import InverseProblem, optimize
+    from bevy_raytrace_tpu_torch.inverse import (
+        make_fast_renderer,
+        make_fast_renderer_sharded,
+        optimize,
+    )
+    from bevy_raytrace_tpu_torch.inverse.recovery import (
+        ball_errors,
+        perturbed_problem,
+    )
     from bevy_raytrace_tpu_torch.io import write_image
-    from bevy_raytrace_tpu_torch.profile_grad import ball_errors
     from bevy_raytrace_tpu_torch.wavefront.render import render
 
     args.scene = "config1"
     device = _device(args)
     backend = args.backend
     with _mesh(args, device) as mesh:
-        config, scene_true, camera, _ = _build(args, device)
-        opt_config = dataclasses.replace(config, edge_softness=0.01)
+        config, _, camera, _ = _build(args, device)
 
         # --backend torch: differentiate the wavefront (the sphere sweep is
         # paid in both directions).  --backend pallas/cuda: the fast path:
@@ -517,45 +522,27 @@ def cmd_inverse(args):
         # sphere sweep (inverse/fast_grad.py; both take the default
         # recorder).  --sharded composes with both: each rank renders its
         # pixel stripe, cotangents are summed in one all-reduce.
-        render_fn = None
         build_s = 0.0
         if backend != "torch":
             build_s = _build_kernels(["k2_record", "k3_replay_grad"], device)
-        if mesh is not None:
-            if backend != "torch":
-                from bevy_raytrace_tpu_torch.inverse import (
-                    make_fast_renderer_sharded,
-                )
 
-                fast = make_fast_renderer_sharded(opt_config, mesh)
-                render_fn = (lambda sc, cam, cfg, fr:  # noqa: E731
-                             fast(sc, cam, fr, gather=True))
-            else:
+        def renderer(opt_config):
+            if backend == "torch":
+                if mesh is None:
+                    return None
                 from bevy_raytrace_tpu_torch.shard import render_sharded
 
-                render_fn = (lambda sc, cam, cfg, fr:  # noqa: E731
-                             render_sharded(sc, cam, cfg, mesh, fr,
-                                            gather=True))
-        elif backend != "torch":
-            from bevy_raytrace_tpu_torch.inverse import make_fast_renderer
+                return (lambda sc, cam, cfg, fr:  # noqa: E731
+                        render_sharded(sc, cam, cfg, mesh, fr, gather=True))
+            if mesh is None:
+                fast = make_fast_renderer(opt_config)
+                return lambda sc, cam, cfg, fr: fast(sc, cam, fr)  # noqa: E731
+            fast = make_fast_renderer_sharded(opt_config, mesh)
+            return (lambda sc, cam, cfg, fr:  # noqa: E731
+                    fast(sc, cam, fr, gather=True))
 
-            fast = make_fast_renderer(opt_config)
-            render_fn = lambda sc, cam, cfg, fr: fast(sc, cam, fr)  # noqa: E731
-
-        with torch.no_grad():
-            target = render(scene_true, camera, config, 9999)
-        albedo = scene_true.materials.albedo.clone()
-        albedo[1] = torch.tensor([0.2, 0.8, 0.6], device=device)
-        centers = scene_true.centers.clone()
-        centers[1] += torch.tensor([0.25, -0.1, 0.1], device=device)
-        scene_bad = dataclasses.replace(
-            scene_true, centers=centers,
-            materials=dataclasses.replace(scene_true.materials,
-                                          albedo=albedo))
-        problem = InverseProblem(config=opt_config, camera=camera,
-                                 target=target,
-                                 optimizable=("centers", "albedo"),
-                                 render_fn=render_fn)
+        scene_bad, scene_true, problem = perturbed_problem(
+            config, device, renderer, camera)
         writes = mesh is None or mesh.rank == 0
         _sync(device)
         t0 = time.perf_counter()

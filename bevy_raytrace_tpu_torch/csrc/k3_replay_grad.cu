@@ -83,36 +83,22 @@
 // at the L2.  With the aggregation in front, a loop iteration races only the
 // block's other warps on that row and column.
 //
-// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md): with
-// the adds aggregated it runs at 1.1-1.45x the BRT_K3_TABLE_ADD = 0 probe,
-// so what is left is the replay's own arithmetic (no fused multiply-add,
-// correctly rounded divisions and square roots, the per-thread state array
-// in local memory, hit_forward twice a bounce), far above the bytes it must
-// move.  No sphere search runs: the cost does not grow with the sphere
-// count.  The residual reads are coalesced (consecutive threads, consecutive
-// pids of one sample, in every grid-stride round).
-//
-// Measurement probes, built only by profile_grad.py (the default build is
-// the kernel): BRT_K3_TABLE_ADD = 0 adds every cotangent into a per-thread
-// register instead of the table (no staging, no atomics: the floor; its
-// d_table is wrong).  BRT_K3_STEP selects a design step for the A/B: 2 (the
-// kernel), 1 without the warp aggregation (each lane adds its own row, into
-// the block's table or d_table), 0 neither persistence nor aggregation nor a
-// block table: one block per 128 paths, every lane's float64 atomics
-// straight into d_table whatever the table mode (the A/B's baseline).
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W): with the adds
+// aggregated it runs at 1.1-1.45x its no-add floor, a build that added every
+// cotangent into a register instead of the table (measured at commit
+// 9f5b32e, whose source still has that build), so what is left is the
+// replay's own arithmetic (no fused multiply-add, correctly rounded
+// divisions and square roots, the per-thread state array in local memory,
+// hit_forward twice a bounce), far above the bytes it must move.  No sphere
+// search runs: the cost does not grow with the sphere count.  The residual
+// reads are coalesced (consecutive threads, consecutive pids of one sample,
+// in every grid-stride round).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "common.cuh"
-
-#ifndef BRT_K3_TABLE_ADD
-#define BRT_K3_TABLE_ADD 64
-#endif
-#ifndef BRT_K3_STEP
-#define BRT_K3_STEP 2
-#endif
 
 namespace {
 
@@ -411,24 +397,11 @@ __device__ __forceinline__ void add_entry(double* tbl, int row, int c,
 
 // Adds one bounce's row cotangents of the whole warp: every lane calls it
 // (full mask), with row = -1 where it adds nothing.  stage is the warp's
-// [kGradCols][32] staging area; `sink` is the register the
-// BRT_K3_TABLE_ADD == 0 probe adds into.
+// [kGradCols][32] staging area.
 template <bool kShared>
 __device__ __forceinline__ void add_rows(double* tbl, int row,
                                          const float grow[kGradCols],
-                                         float (*stage)[32], int lane,
-                                         float& sink) {
-#if BRT_K3_TABLE_ADD == 0
-#pragma unroll
-  for (int c = 0; c < kGradCols; ++c) sink += grow[c];
-#elif BRT_K3_STEP < 2
-  if (row >= 0) {
-#pragma unroll
-    for (int c = 0; c < kGradCols; ++c)
-      if (grow[c] != 0.f)
-        add_entry<kShared>(tbl, row, c, static_cast<double>(grow[c]));
-  }
-#else
+                                         float (*stage)[32], int lane) {
   const unsigned peers = __match_any_sync(0xffffffffu, row);
 #pragma unroll
   for (int c = 0; c < kGradCols; ++c) stage[c][lane] = grow[c];
@@ -446,7 +419,6 @@ __device__ __forceinline__ void add_rows(double* tbl, int row,
     }
   }
   __syncwarp();  // the next bounce overwrites the staging area
-#endif
 }
 
 // The gradient of path (s, pid) when `active`; an inactive lane (past the
@@ -458,7 +430,7 @@ __device__ __forceinline__ void path_grad(
     const float* __restrict__ g, double* add_tbl, int pixel_base, int n_pix,
     int s, int pid, uint32_t seed, uint32_t sample, int max_depth,
     float t_min, float edge_soft, float inv_spp, int width, int height,
-    float (*stage)[32], int lane, float gc[16], float& sink) {
+    float (*stage)[32], int lane, float gc[16]) {
   float G[3] = {0.f, 0.f, 0.f};
   if (active) {
     G[0] = g[3 * pid] * inv_spp;
@@ -580,7 +552,7 @@ __device__ __forceinline__ void path_grad(
         row = rec;
       }
     }
-    add_rows<kShared>(add_tbl, row, grow, stage, lane, sink);
+    add_rows<kShared>(add_tbl, row, grow, stage, lane);
   }
   if (!active) return;
 
@@ -635,7 +607,6 @@ __global__ void __launch_bounds__(kThreads)
 
   const brt::Cam c = brt::load_cam(cam_in);
   double* add_tbl = kShared ? block_tbl : d_tbl;
-  float sink = 0.f;
   // Every lane of a block runs the same rounds (the bound is the block's
   // first path), so the warp-wide primitives see a full mask.
   const long long step = static_cast<long long>(gridDim.x) * kThreads;
@@ -651,7 +622,7 @@ __global__ void __launch_bounds__(kThreads)
     path_grad<ResT, kEdge, kShared>(
         active, tbl, c, res, res2, g, add_tbl, pixel_base, n_pix, s, pid,
         seed, sample_base + static_cast<uint32_t>(s), max_depth, t_min,
-        edge_soft, inv_spp, width, height, stage[warp], lane, gc, sink);
+        edge_soft, inv_spp, width, height, stage[warp], lane, gc);
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       float v = gc[k];
@@ -661,9 +632,6 @@ __global__ void __launch_bounds__(kThreads)
       if (lane == 0) cam_acc[warp][k] += static_cast<double>(v);
     }
   }
-#if BRT_K3_TABLE_ADD == 0
-  if (sink == -1.2345e-38f) d_tbl[0] = sink;  // keeps the probe's adds live
-#endif
   __syncthreads();
   if (kShared) {
     for (int i = threadIdx.x; i < n_rows * kGradCols; i += kThreads) {
@@ -700,7 +668,6 @@ int launch(const void* tbl, const void* cam, const void* res,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-#if BRT_K3_STEP >= 1
   // The persistent grid: as many blocks as the SMs hold at this table size.
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -713,7 +680,6 @@ int launch(const void* tbl, const void* cam, const void* res,
   blocks = blocks < static_cast<long long>(sms) * per_sm
                ? blocks
                : static_cast<long long>(sms) * per_sm;
-#endif
   k3_replay_grad_kernel<ResT, kEdge, kShared>
       <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
       static_cast<const float*>(tbl), static_cast<const float*>(cam),
@@ -775,8 +741,7 @@ extern "C" int brt_k3_replay_grad(const void* tbl, const void* cam,
 #define BRT_K3_DISPATCH(T, E)                                       \
   return shared ? launch<T, E, true>(BRT_K3_ARGS)                   \
                 : launch<T, E, false>(BRT_K3_ARGS)
-  // The BRT_K3_STEP == 0 probe adds into d_tbl whatever the mode.
-  const bool shared = table_mode == 1 && BRT_K3_STEP >= 1;
+  const bool shared = table_mode == 1;
   const bool edge = edge_soft > 0.f;
   if (res_bytes == 2) {
     if (edge) BRT_K3_DISPATCH(int16_t, true);

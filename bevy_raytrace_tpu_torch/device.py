@@ -6,10 +6,12 @@ Every constructor and renderer of the package (`scenes.*`, `Camera.look_at`,
 There is no silent fallback: without a CUDA device `default_device()`
 raises.  A caller who wants the CPU says so, either per call
 (`device="cpu"`) or once per process with `set_default_device("cpu")`, as
-the CPU tests do.
+the CPU tests do.  `smi_line` names the card a measurement ran on.
 """
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -39,3 +41,13 @@ def default_device() -> torch.device:
 def resolve(device) -> torch.device:
     """`device`, or the default device when it is None."""
     return default_device() if device is None else torch.device(device)
+
+
+def smi_line() -> str:
+    """The first card's name and power limit as nvidia-smi prints them
+    ("NVIDIA H100 80GB HBM3, 700.00 W"): what a measurement states beside
+    its numbers, since a card set below its maximum runs slower."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

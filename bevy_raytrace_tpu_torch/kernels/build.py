@@ -5,9 +5,7 @@ into `bevy_raytrace_tpu_torch/_build/` (git-ignored), under a name keyed by
 a hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one loads the existing `.so`.  The sources expose plain `extern
 "C"` launchers: no PyTorch header is compiled, which keeps a build to
-seconds.  Nothing here runs at import time.  `defines` (macro=value strings,
-passed as -D) build a variant of a library beside it, under its own hash:
-`profile_grad.py` builds K3's measurement probes that way.
+seconds.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -30,8 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 EXTRA_FLAGS = {"k3_replay_grad": ("-fmad=false",)}
 
 _LIBS: dict = {}
-# name (then the defines, space-separated) -> (seconds, nvcc output) of the
-# builds this process ran.
+# name -> (seconds, nvcc output) of the builds this process ran.
 BUILD_LOG: dict = {}
 
 
@@ -43,40 +40,35 @@ def _nvcc() -> str:
     return path
 
 
-def _flags(name: str, defines: tuple = ()) -> tuple:
-    return (NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-            + tuple(f"-D{d}" for d in defines))
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
-def _key(name: str, defines: tuple) -> str:
-    return " ".join((name, *defines))
-
-
-def _source_hash(name: str, defines: tuple = ()) -> str:
-    h = hashlib.sha256(" ".join(_flags(name, defines)).encode())
+def _source_hash(name: str) -> str:
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str, defines: tuple = ()) -> Path:
-    return BUILD_DIR / f"lib{name}-{_source_hash(name, defines)}.so"
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_source_hash(name)}.so"
 
 
-def load_all(names, defines: tuple = ()) -> dict:
+def load_all(names) -> dict:
     """Build every library of `names` that is missing, one nvcc process
     each, all started together; then load them all -> {name: CDLL}."""
-    names, defines = list(names), tuple(defines)
+    names = list(names)
     procs = {}
     for name in names:
-        out = library_path(name, defines)
-        if _key(name, defines) in _LIBS or out.exists():
+        out = library_path(name)
+        if name in _LIBS or out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *_flags(name, defines), "-I", str(CSRC), "-o", str(tmp),
+            [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp),
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         procs[name] = (proc, time.perf_counter(), tmp, out)
@@ -88,32 +80,30 @@ def load_all(names, defines: tuple = ()) -> dict:
             continue
         out.with_suffix(".log").write_text(stdout + stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-        BUILD_LOG[_key(name, defines)] = (time.perf_counter() - t0,
-                                          stdout + stderr)
+        BUILD_LOG[name] = (time.perf_counter() - t0, stdout + stderr)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: load(name, defines) for name in names}
+    return {name: load(name) for name in names}
 
 
-def build_output(name: str, defines: tuple = ()) -> str:
+def build_output(name: str) -> str:
     """nvcc's output (ptxas's registers, stack frame and spills of each
     kernel) for the library `load` gives: this process's build, or the one
     saved beside a library built earlier."""
-    load(name, defines)
-    got = BUILD_LOG.get(_key(name, tuple(defines)))
-    return got[1] if got else library_path(name, tuple(defines)).with_suffix(
+    load(name)
+    got = BUILD_LOG.get(name)
+    return got[1] if got else library_path(name).with_suffix(
         ".log").read_text()
 
 
-def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` as a shared library."""
-    defines = tuple(defines)
-    lib = _LIBS.get(_key(name, defines))
+    lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    out = library_path(name, defines)
+    out = library_path(name)
     if not out.exists():
-        return load_all([name], defines)[name]
+        return load_all([name])[name]
     lib = ctypes.CDLL(str(out))
-    _LIBS[_key(name, defines)] = lib
+    _LIBS[name] = lib
     return lib

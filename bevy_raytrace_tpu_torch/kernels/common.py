@@ -38,13 +38,14 @@ FORWARD_ROW_BYTES = 16
 # Blocks of 128 threads an SM must keep resident for the staged table to
 # pay, by library: below that the sweep's latency is less hidden than the
 # read-only cache costs.  On an H100 both modes were timed on seeded scenes
-# at the largest table each count of resident blocks admits
-# (`profile_grad.py --parts forward`, PERF.md section 6).  Staged against
-# device memory: K1 0.5-2.4% faster at 7 blocks (2,000 rows), 1.6-2.2%
-# slower at 6 (2,368), 7-11% slower at 5; K4 5.6-6.7% faster at 7, 1.2-2.7%
-# faster at 6, 1.8-4.3% slower at 5.  So K1 stages up to 32,256 bytes (2,016
-# rows) and K4 up to 37,888 (2,368), with 56 registers a thread.  The
-# libraries turn the count into bytes with the occupancy API.
+# at the largest table each count of resident blocks admits (`git show
+# e88e2a1:PERF.md`; `python -m bevy_raytrace_tpu_torch.tools.forward_kernels`
+# times them again).  Staged against device memory: K1 0.5-2.4% faster at 7
+# blocks (2,000 rows), 1.6-2.2% slower at 6 (2,368), 7-11% slower at 5; K4
+# 5.6-6.7% faster at 7, 1.2-2.7% faster at 6, 1.8-4.3% slower at 5.  So K1
+# stages up to 32,256 bytes (2,016 rows) and K4 up to 37,888 (2,368), with
+# 56 registers a thread.  The libraries turn the count into bytes with the
+# occupancy API.
 # K1's culled kernel (rows, chunk bounds and priority rows staged) keeps
 # K1's count: its own threshold is not timed yet.  Its warps' pair queues
 # (13,312 bytes of static shared memory a block) are counted by the

@@ -119,10 +119,8 @@ def replay_grad_plain(table, cam16, config: RenderConfig, res, g,
 
 
 @functools.lru_cache(maxsize=None)
-def _k3_launcher(defines: tuple = ()):
-    """K3's launcher; `defines` select a measurement probe's build (see
-    csrc/k3_replay_grad.cu)."""
-    lib = build.load("k3_replay_grad", defines)
+def _k3_launcher():
+    lib = build.load("k3_replay_grad")
     fn = lib.brt_k3_replay_grad
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)
@@ -186,22 +184,21 @@ def replay_grad(table, cam16, config: RenderConfig, res, g, frame: int = 0,
     if device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA (or its twin on CPU), not {device}")
     mode = _table_mode(table)
-    out = _launch(_k3_launcher(), table, cam16, config, res, g, frame,
-                  sample_base, res2, base, n, mode)
+    out = _launch(table, cam16, config, res, g, frame, sample_base, res2,
+                  base, n, mode)
     count("k3.launches")
     if mode == "global":
         count("k3.launches_global")
     return out
 
 
-def _launch(launch, table, cam16, config: RenderConfig, res, g, frame: int,
+def _launch(table, cam16, config: RenderConfig, res, g, frame: int,
             sample_base: int, res2, pixel_base: int = 0, num_local=None,
             table_mode: str = "global"):
-    """Runs `launch` (a `_k3_launcher`) on checked CUDA operands; the
-    pixels are [pixel_base, pixel_base + num_local), the whole frame when
-    `num_local` is None.  `table_mode` is one of TABLE_MODES: `replay_grad`
-    passes `table_plan`'s, the checks on the card force one to hold the
-    two against each other."""
+    """Launches K3 on checked CUDA operands; the pixels are [pixel_base,
+    pixel_base + num_local), the whole frame when `num_local` is None.
+    `table_mode` is one of TABLE_MODES: `replay_grad` passes `table_plan`'s,
+    the checks on the card force one to hold the two against each other."""
     if table_mode not in TABLE_MODES:
         raise ValueError(f"table_mode must be one of {TABLE_MODES}, got "
                          f"{table_mode!r}")
@@ -213,6 +210,7 @@ def _launch(launch, table, cam16, config: RenderConfig, res, g, frame: int,
     # float64 sums: see csrc/k3_replay_grad.cu "Accumulation".
     d_tbl = torch.zeros(table.shape, dtype=torch.float64, device=device)
     d_cam = torch.zeros((16,), dtype=torch.float64, device=device)
+    launch = _k3_launcher()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = launch(table.data_ptr(), cam16.data_ptr(), res.data_ptr(),

@@ -7,6 +7,7 @@ from bevy_raytrace_tpu_torch.scenes.builders import (
     rtiow_final_scene,
     rtiow_final_camera,
     reference_scene,
+    random_scene,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "rtiow_final_scene",
     "rtiow_final_camera",
     "reference_scene",
+    "random_scene",
 ]

@@ -151,3 +151,24 @@ def reference_scene(seed: int = 0, device=None):
     spheres.append(((-4.0, 1.0, 0.0), 1.0, left))
     spheres.append(((4.0, 1.0, 0.0), 1.0, right))
     return _build(spheres, reg, device), reg
+
+
+# --- Seeded scenes of any size (the port's own; no reference builds them) ---
+
+
+def random_scene(n, seed=0, device=None):
+    """A seeded scene of `n` spheres: the RTiOW ground and n - 1 small
+    spheres of mixed materials scattered over it, denser than
+    rtiow_final's (tables up to and above a block's shared memory)."""
+    rng = np.random.default_rng(seed)
+    m = n - 1
+    r = rng.uniform(0.05, 0.25, m)
+    xz = rng.uniform(-11.0, 11.0, (m, 2))
+    centers = np.concatenate([[[0.0, -1000.0, 0.0]],
+                              np.stack([xz[:, 0], r, xz[:, 1]], 1)])
+    return make_scene(
+        centers, np.concatenate([[1000.0], r]), np.arange(n),
+        np.concatenate([[[0.5, 0.5, 0.5]], rng.uniform(0.1, 0.9, (m, 3))]),
+        np.concatenate([[0], rng.choice(3, m, p=[0.7, 0.2, 0.1])]),
+        np.concatenate([[0.0], rng.uniform(0.0, 0.5, m)]),
+        np.full(n, 1.5), device=device)

@@ -91,10 +91,9 @@ exit — if any phase fails:
      center error < 0.4x the initial, albedo error < 0.08); (b) the `cli
      inverse` problem of phase 10 at its 120 steps and lr 1.5e-2 through K2
      and through K4 (K2 or K4 240, K3 240) from the same start: the first
-     loss, the mean of the last 10, the center and albedo errors, s/step,
-     paths/s and a profiled step's idle share logged; each clears the bars
-     with the last-10 mean for the last loss, and K4's last-10 mean lies
-     within 10% of K2's;
+     loss, the mean of the last 10, the center and albedo errors, s/step
+     and paths/s logged; each clears the bars with the last-10 mean for the
+     last loss, and K4's last-10 mean lies within 10% of K2's;
  12. the flagship gradient (1200x800, 256 spp, depth 8, rtiow_final, d
      mean(img^2) / d centers) unchunked and with grad_spp_chunk=64; finite
      and agreeing to rtol 2e-3;
@@ -220,11 +219,12 @@ the entry's shape: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s (the H100 SXM data sheet).  Operations are
 counted from the CUDA sources per ray-sphere test, per executed round and
-per path (the constants below), times what THIS run's data needs: executed
-rounds from K1's `len` output at the same shape, the culled K1's chunk and
-member tests from its live-chunk count, hit bounces from the recorded
-residuals; P1's rounds from its output; the probes' from their
-shapes, bfloat16 against 133.8 TFLOP/s.  No single PyTorch call computes what
+per path (the benchmark's counts, benchmark/brtbench/yardstick, and K3's
+below), times what THIS run's data needs: executed rounds from K1's `len`
+output at the same shape, the culled K1's chunk and member tests from its
+live-chunk count, hit bounces from the recorded residuals; P1's rounds from
+its output; the probes' from their shapes, bfloat16 against 133.8
+TFLOP/s.  No single PyTorch call computes what
 K1-K4, P1 or V1-V3 compute, so their library_ms is null; P2-P5 each stand
 beside one (torch.matmul, a reshape and multiply, torch.min, an indexed
 gather), timed here and used nowhere in the package.
@@ -243,6 +243,19 @@ import os
 import subprocess
 import sys
 import time
+
+# The benchmark's yardstick (benchmark/brtbench/yardstick): the card's peaks
+# and the forward kernels' counts, imported as benchmark/run.py does.
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.join(_ROOT, "benchmark"), _ROOT]
+
+from brtbench.yardstick.forward_sweep import (  # noqa: E402
+    CAMERA_FLOPS,
+    ROUND_FLOPS,
+    SWEEP_FLOPS,
+    forward_work,
+)
+from brtbench.yardstick.peaks import PEAK_BYTES, PEAK_FP32_FLOPS  # noqa: E402
 
 
 def log(*a):
@@ -315,22 +328,6 @@ def device_ms(fn, reps):
         e.key[:60] for e in rows)
 
 
-# The card's published peaks (H100 SXM data sheet): float32 outside the
-# tensor cores, and device memory.
-PEAK_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-# Float32 operations that a ray-sphere test needs: the discriminant.  K1/K4
-# (the centered quadratic of k1_render.cu's and k4_sweep_record.cu's sweep):
-# oc 3, hb 5, cq 6, disc 2.  K2 (k2_record.cu, the expanded quadratic): c.d
-# 5, o.c 5, half_b 1, cq 3, disc 2.  The root is needed only where disc > 0
-# (a small share of the tests) and is not counted, although K2 executes its
-# sqrtf and both roots for every sphere: the bound counts what the function
-# needs, not what a kernel chooses to execute.
-SWEEP_FLOPS = {"k1": 16, "k4": 16, "k2": 16}
-# Per executed round (hit frame, scatter, sky; ~40 + ~70 + ~10) and per path
-# (the thin-lens camera ray), from common.cuh.
-ROUND_FLOPS = 120
-CAMERA_FLOPS = 70
 # K3 (k3_replay_grad.cu): per hit bounce, one hit_forward (~90) and its
 # hit_adjoint (~110); per path, the camera ray and its adjoint (~150) and
 # the sky's.  The kernel runs hit_forward a second time in its reverse
@@ -339,7 +336,7 @@ K3_HIT_FLOPS = 200
 K3_PATH_FLOPS = 160
 
 
-def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
+def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
     """{"bound_ms", "bound_by"} of work that needs `flops` operations (of
     float32 unless `peak_flops` says otherwise) and moves `nbytes` bytes."""
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
@@ -350,15 +347,9 @@ def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
 
 def forward_bound(kind, n_spheres, n_pix, spp, depth, rounds, res_streams=0):
     """Bound of a forward kernel (K1, K2 or K4) that executed `rounds`
-    (path, bounce) rounds over `n_pix` pixels: the sweep over every sphere
-    per round plus shading, against the tables in, the image (and K1's
-    pids in and len out) and `res_streams` int16 residual streams out."""
-    flops = (rounds * (n_spheres * SWEEP_FLOPS[kind] + ROUND_FLOPS)
-             + n_pix * spp * CAMERA_FLOPS)
-    nbytes = (n_spheres * 48 + 64 + n_pix * 12
-              + (n_pix * 8 if kind == "k1" else 0)
-              + res_streams * 2 * spp * depth * n_pix)
-    return bound(flops, nbytes)
+    (path, bounce) rounds: the benchmark's count (forward_sweep.py)."""
+    return bound(*forward_work(kind, n_spheres, n_pix, spp, depth, rounds,
+                               res_streams))
 
 
 def culled_bound(n_spheres, n_chunks, chunk, n_prio, n_pix, spp, rounds,
@@ -370,7 +361,7 @@ def culled_bound(n_spheres, n_chunks, chunk, n_prio, n_pix, spp, rounds,
     chunk once a round (so never more than were swept); against the rows,
     bounds, priority rows and members in, pids in and fb and len out."""
     members = max(live * chunk - rounds * (n_chunks * chunk - n_spheres), 0)
-    flops = ((rounds * (n_chunks + n_prio) + members) * SWEEP_FLOPS["k1"]
+    flops = ((rounds * (n_chunks + n_prio) + members) * SWEEP_FLOPS
              + rounds * ROUND_FLOPS + n_pix * spp * CAMERA_FLOPS)
     nbytes = (n_spheres * 52 + (n_chunks + n_prio) * 16 + 64 + n_pix * 12
               + n_pix * 8)
@@ -505,9 +496,8 @@ def recovery_phase(dev, smi, cli_problem):
     import torch
 
     from bevy_raytrace_tpu_torch.inverse import optimize
-    from bevy_raytrace_tpu_torch.profile_grad import (
+    from bevy_raytrace_tpu_torch.inverse.recovery import (
         RECOVERY_BARS,
-        _profile,
         ball_errors,
         ball_inverse_problem,
         cli_inverse_problem,
@@ -563,25 +553,20 @@ def recovery_phase(dev, smi, cli_problem):
               and alb1 < RECOVERY_BARS["albedo"],
               f"recovery {label} {forward} missed the reference's bars "
               f"{RECOVERY_BARS}: {out}")
-        return out, scene_bad, problem
+        return out
 
     # (a) the reference test's problem.
     small = {fw: run("the reference test's problem",
                      lambda: ball_inverse_problem(dev, forward=fw), fw, 80,
-                     1e-2, 1)[0]
+                     1e-2, 1)
              for fw in ("wavefront", "pallas", "sweep")}
 
-    # (b) the `cli inverse` problem at its defaults (K2's is phase 10's),
-    # with one more step of each recorder profiled after the counted run.
+    # (b) the `cli inverse` problem at its defaults (K2's is phase 10's).
     full = {}
     for fw, make in (("pallas", lambda: cli_problem),
                      ("sweep", lambda: cli_inverse_problem(dev,
                                                            forward="sweep"))):
-        full[fw], scene_bad, problem = run(
-            "the cli inverse problem", make, fw, 120, 1.5e-2, 10)
-        full[fw]["profile"] = _profile(
-            f"recovery_{fw}", lambda: optimize(scene_bad, problem, steps=1,
-                                               learning_rate=1.5e-2), None)
+        full[fw] = run("the cli inverse problem", make, fw, 120, 1.5e-2, 10)
     m2, m4 = full["pallas"]["last10_mean"], full["sweep"]["last10_mean"]
     log(f"[recovery] the cli inverse problem, last-10 mean loss: K2 "
         f"{m2:.6f}, K4 {m4:.6f} ({m4 / m2 - 1:+.2%}); s/step K2 "
@@ -616,10 +601,8 @@ def gradient_phases(dev, smi):
     from bevy_raytrace_tpu_torch.kernels import record as k2
     from bevy_raytrace_tpu_torch.kernels import replay_grad as k3
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare, grad_close
-    from bevy_raytrace_tpu_torch.profile_grad import (
-        cli_inverse_problem,
-        random_scene,
-    )
+    from bevy_raytrace_tpu_torch.inverse.recovery import cli_inverse_problem
+    from bevy_raytrace_tpu_torch.scenes import random_scene
     from bevy_raytrace_tpu_torch.utils import spans
 
     # ---- 7. build K2 and K3 ----------------------------------------------
@@ -711,8 +694,8 @@ def gradient_phases(dev, smi):
                        1 if res2 is None else 2)}
         if against_global:
             glob_ms, forced = cuda_ms(lambda: k3._launch(
-                k3._k3_launcher(), table, cam16, cfg, res, g, 1, sample_base,
-                res2, table_mode="global"), 3)
+                table, cam16, cfg, res, g, 1, sample_base, res2,
+                table_mode="global"), 3)
             vs_twin, vs_mode = cotangents_vs(forced, want), cotangents_vs(
                 forced, got)
             log(f"[k3] {label}: global table forced {glob_ms:.3f} ms; vs "
@@ -2249,7 +2232,7 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
     from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare
-    from bevy_raytrace_tpu_torch.profile_grad import random_scene
+    from bevy_raytrace_tpu_torch.scenes import random_scene
     from bevy_raytrace_tpu_torch.tools import livechunks
     from bevy_raytrace_tpu_torch.utils import spans
 
@@ -2444,14 +2427,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
     from bevy_raytrace_tpu_torch import RenderConfig
     from bevy_raytrace_tpu_torch import scenes
+    from bevy_raytrace_tpu_torch.device import smi_line
     from bevy_raytrace_tpu_torch.kernels import build
     from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
     from bevy_raytrace_tpu_torch.parity import COMPILED, compare
-    from bevy_raytrace_tpu_torch.profile_grad import random_scene, smi_line
+    from bevy_raytrace_tpu_torch.scenes import random_scene
     from bevy_raytrace_tpu_torch.utils import spans
     from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
     from bevy_raytrace_tpu_torch.wavefront.render import frame_seed, render

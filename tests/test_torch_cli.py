@@ -238,6 +238,36 @@ def test_pallas_backend_plans_once_per_sequence(tmp_path, monkeypatch):
     assert plans == [] and seen == [None]
 
 
+def test_inverse_problem_comes_from_recovery(tmp_path, capsys, monkeypatch):
+    """`cli inverse` makes its problem with inverse/recovery.py's
+    perturbed_problem, the function the card's recovery checks use: the
+    closing line's start errors are ball_errors of that function's
+    perturbed scene, and its loss is the first loss of that problem."""
+    from bevy_raytrace_tpu_torch.inverse import optimize, recovery
+
+    built = []
+    original = recovery.perturbed_problem
+
+    def spy(config, *args, **kw):
+        built.append(config)
+        return original(config, *args, **kw)
+
+    monkeypatch.setattr(recovery, "perturbed_problem", spy)
+    cli.main(["inverse", "--width", "16", "--height", "8", "--spp", "1",
+              "--depth", "2", "--steps", "1", "--backend", "torch", "-o",
+              str(tmp_path / "inv.png"), *CPU])
+    (final,) = [line for line in capsys.readouterr().err.splitlines()
+                if line.startswith("final ")]
+    got = {k: float(v) for k, v in (kv.split("=") for kv in final.split()[1:])}
+    (config,) = built
+    scene_bad, scene_true, problem = original(config, "cpu")
+    np.testing.assert_allclose(
+        [got["center_error_start"], got["albedo_error_start"]],
+        recovery.ball_errors(scene_bad, scene_true), rtol=1e-5)
+    first = optimize(scene_bad, problem, steps=1, learning_rate=1.5e-2)
+    np.testing.assert_allclose(got["loss"], first.losses[0], rtol=1e-5)
+
+
 def test_inverse_fast_backend(tmp_path, capsys):
     """cli inverse --backend pallas drives the residual-replay fast path
     (inverse/fast_grad.py; on the CPU K2's and K3's twins) end to end."""

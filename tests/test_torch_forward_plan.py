@@ -3,11 +3,11 @@
 The size rule that stages the sphere rows in shared memory or reads them
 from device memory (`kernels/common.py::forward_table_plan`, a pure function
 of the row count and the limit a kernel's library reports), the wrappers'
-refusal of a mode they do not know, and `profile_grad.py`'s lane-efficiency
-helper: the share of lane-rounds that do work when every lane of a warp
-waits for the warp's longest path of each sample (the nested schedule) and
-when a lane waits only for the warp's longest total (the per-lane refill K1
-and K4 run).  The kernels' two modes run only on a card
+refusal of a mode they do not know, and `tools/forward_kernels.py`'s
+lane-efficiency helper: the share of lane-rounds that do work when every
+lane of a warp waits for the warp's longest path of each sample (the nested
+schedule) and when a lane waits only for the warp's longest total (the
+per-lane refill K1 and K4 run).  The kernels' two modes run only on a card
 (tests/test_torch_cuda.py).
 """
 
@@ -24,7 +24,7 @@ from bevy_raytrace_tpu_torch.kernels import common
 from bevy_raytrace_tpu_torch.kernels import record as k2
 from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
 from bevy_raytrace_tpu_torch.kernels import sweep_record as k4
-from bevy_raytrace_tpu_torch.profile_grad import (
+from bevy_raytrace_tpu_torch.tools.forward_kernels import (
     lane_rounds,
     schedule_efficiency,
 )

@@ -238,18 +238,19 @@ def test_wrapper_rejects_bad_operands():
     assert fb.shape == (256, 3) and ln.shape == (256,)
 
 
-def test_build_variants_get_their_own_library():
-    """`-D` variants of a kernel build beside it under their own hash; the
-    kernel's own library path does not depend on the variants."""
+def test_library_path_follows_its_own_flags(monkeypatch):
+    """A library's path hashes its own nvcc flags: a change to its
+    EXTRA_FLAGS entry builds it anew under another name, and a change to
+    another library's entry leaves it where it is."""
     from bevy_raytrace_tpu_torch.kernels import build as kbuild
 
-    name = "k3_replay_grad"
-    plain = kbuild.library_path(name)
-    probe = kbuild.library_path(name, ("BRT_K3_TABLE_ADD=0",))
-    assert plain == kbuild.library_path(name, ())
-    assert probe != plain and probe.parent == plain.parent
-    assert "-DBRT_K3_TABLE_ADD=0" in kbuild._flags(name, ("BRT_K3_TABLE_ADD=0",))
-    assert kbuild._key(name, ()) == name
+    k1, k3 = (kbuild.library_path(n) for n in ("k1_render", "k3_replay_grad"))
+    monkeypatch.setitem(kbuild.EXTRA_FLAGS, "k3_replay_grad", ("-fmad=true",))
+    assert kbuild.library_path("k3_replay_grad") not in (k1, k3)
+    assert kbuild.library_path("k1_render") == k1
+    monkeypatch.setitem(kbuild.EXTRA_FLAGS, "k1_render", ("-lineinfo",))
+    assert kbuild.library_path("k1_render") != k1
+    assert kbuild.library_path("k1_render").parent == k1.parent
 
 
 def test_build_output_of_a_cached_library(tmp_path, monkeypatch):
@@ -259,7 +260,7 @@ def test_build_output_of_a_cached_library(tmp_path, monkeypatch):
     from bevy_raytrace_tpu_torch.kernels import build as kbuild
 
     monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(kbuild, "load", lambda name, defines=(): None)
+    monkeypatch.setattr(kbuild, "load", lambda name: None)
     monkeypatch.setattr(kbuild, "BUILD_LOG", {})
     saved = "ptxas info    : Used 64 registers, used 1 barriers"
     kbuild.library_path("k1_render").with_suffix(".log").write_text(saved)
@@ -267,4 +268,4 @@ def test_build_output_of_a_cached_library(tmp_path, monkeypatch):
     kbuild.BUILD_LOG["k1_render"] = (2.5, "this process's build")
     assert kbuild.build_output("k1_render") == "this process's build"
     with pytest.raises(FileNotFoundError):
-        kbuild.build_output("k1_render", ("BRT_OTHER=1",))
+        kbuild.build_output("k4_sweep_record")

@@ -33,7 +33,7 @@ from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
 from bevy_raytrace_tpu_torch.kernels.clusters import ClusterPlan, cluster_scene
 from bevy_raytrace_tpu_torch.kernels.common import _plain_camera, _rsqrt_guard
 from bevy_raytrace_tpu_torch.parity import COMPILED, compare
-from bevy_raytrace_tpu_torch.profile_grad import random_scene
+from bevy_raytrace_tpu_torch.scenes import random_scene
 from bevy_raytrace_tpu_torch.utils import spans
 from bevy_raytrace_tpu_torch.wavefront.render import frame_seed
 

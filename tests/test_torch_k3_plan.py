@@ -55,7 +55,7 @@ def test_launch_rejects_an_unknown_table_mode():
     table, cam16, cfg, res, g = _operands()
     for mode in ("texture", None, 1):
         with pytest.raises(ValueError, match="table_mode"):
-            k3._launch(None, table, cam16, cfg, res, g, 0, 0, None,
+            k3._launch(table, cam16, cfg, res, g, 0, 0, None,
                        table_mode=mode)
 
 
