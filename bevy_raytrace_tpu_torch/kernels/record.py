@@ -29,7 +29,20 @@ plan's Morton order and computes the clusters' bounding spheres from the
 live table on its device (`cluster_bounds`), and the kernel walks only the
 members of the clusters a ray's bound test hits.  Image and paths are those
 of the brute-force loop except where two different spheres tie exactly
-(the members are visited in Morton order).  The plain twin with `clusters=`
+(the members are visited in Morton order).
+
+The plan picks the kernel, and with it the schedule.  Without one,
+`k2_record_kernel` runs the nested loop (a thread a pixel, for each sample
+for each bounce, every sphere): on a handful of spheres it beats a round
+loop (K4's took ~3x as long on config1's 3 spheres, PERF.md) and there is no
+cull to share.  With one, `k2_record_kernel_culled` runs culled K1's
+schedule: per-lane refill rounds (a path that ends stores -1 into its later
+bounces and the thread starts its next sample) and the warp's (cluster,
+lane) pair queue, which sweeps each lane's own live clusters, not the union
+of its warp's; the winner and runner-up of the clusters are merged by
+atomicMin on (t, row) keys, which gives the sequential loop's bits (the
+kernel's header has the argument).  Both kernels add each pixel's samples in
+order, so the image does not depend on the schedule.  The plain twin with `clusters=`
 is the brute-force loop over the members in Morton order, WITHOUT the bound
 test: it shares no arithmetic with the cull, so a kernel-vs-twin difference
 on the card exposes a bound that is not conservative instead of repeating
@@ -136,7 +149,7 @@ def _scene_indices(res, members):
 def record_frame_plain(table, cam16, config: RenderConfig, frame: int = 0,
                        sample_base: int = 0, with_residuals: bool = True,
                        record_second: bool = False, pixel_base=None,
-                       num_local=None, clusters=None):
+                       num_local=None, clusters=None, live=None):
     """K2 in tensor ops, on any device: the same contract as `record_frame`.
 
     Vectorized over pixels in chunks that bound each [pixels, spheres]
@@ -147,17 +160,51 @@ def record_frame_plain(table, cam16, config: RenderConfig, frame: int = 0,
 
     With `clusters` the spheres are swept in the plan's Morton order (first
     member wins a tie) with no bound test, and the recorded indices are
-    mapped back to scene indices."""
+    mapped back to scene indices.  `live` (with `clusters`) is filled as
+    the kernel fills it, from the kernel's bound test in tensor ops (each
+    operation rounded, no fma) run on the twin's own paths: it only counts,
+    and decides nothing."""
     if record_second and not with_residuals:
         raise ValueError("record_second requires with_residuals")
+    table = table.detach()
+    if live is not None:
+        _check_live(live, table, clusters, config, pixel_base, num_local)
     if clusters is not None:
         members = _members(table, clusters)
-        img, res, res2 = record_frame_plain(
-            table.detach()[members], cam16, config, frame, sample_base,
-            with_residuals, record_second, pixel_base, num_local)
+        bounds = None if live is None else _bounds(table, clusters)
+        img, res, res2 = _record_plain(
+            table[members], cam16, config, frame, sample_base,
+            with_residuals, record_second, pixel_base, num_local, bounds,
+            live)
         return (img, _scene_indices(res, members),
                 _scene_indices(res2, members))
-    geom, attr = _record_tables(table.detach())
+    return _record_plain(table, cam16, config, frame, sample_base,
+                         with_residuals, record_second, pixel_base, num_local)
+
+
+def _check_live(live, table, clusters, config, pixel_base, num_local):
+    """Refuse a `live` buffer the launch cannot fill."""
+    if clusters is None:
+        raise ValueError("live counts the culled traversal's pairs: it "
+                         "needs clusters")
+    _check("live", live, torch.int32,
+           (2, _stripe(config, pixel_base, num_local)[1]), table.device)
+
+
+def _bounds(table, clusters):
+    """The clusters' bounds [C, 4] (bx, by, bz, |b|^2 - br^2), from the live
+    table on its device."""
+    return torch.stack(cluster_bounds(table[:, :3], table[:, 3], clusters),
+                       dim=1).contiguous()
+
+
+def _record_plain(table, cam16, config, frame, sample_base, with_residuals,
+                  record_second, pixel_base, num_local, bounds=None,
+                  live=None):
+    """`record_frame_plain` on rows in their sweep order; with `bounds`
+    [C, 4] it also fills `live` [2, npix] (the pairs and rounds of the
+    culled kernel's bound tests, clusters of consecutive rows)."""
+    geom, attr = _record_tables(table)
     cam = cam16.detach()
     base, n = _stripe(config, pixel_base, num_local)
     dev = table.device
@@ -176,15 +223,18 @@ def record_frame_plain(table, cam16, config: RenderConfig, frame: int = 0,
         hi = min(lo + chunk, n)
         out_res = None if res is None else res[:, :, lo:hi]
         out_res2 = None if res2 is None else res2[:, :, lo:hi]
+        out_live = None if live is None else live[:, lo:hi]
         fb[lo:hi] = _plain_chunk(geom, attr, cam, pids[lo:hi], seed,
-                                 sample_base, config, out_res, out_res2)
+                                 sample_base, config, out_res, out_res2,
+                                 bounds, out_live)
     img = fb / spp
     if num_local is None:
         img = img.reshape(config.height, config.width, 3)
     return img, res, res2
 
 
-def _plain_chunk(geom, attr, cam, pid, seed, sample_base, config, res, res2):
+def _plain_chunk(geom, attr, cam, pid, seed, sample_base, config, res, res2,
+                 bounds=None, live=None):
     where = torch.where
     spp, depth = config.samples_per_pixel, config.max_depth
     width, height = config.width, config.height
@@ -193,6 +243,8 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, config, res, res2):
     zero = torch.zeros(pid.shape, dtype=torch.float32, device=pid.device)
     fb_r, fb_g, fb_b = zero, zero, zero
     inf = torch.tensor(math.inf, device=pid.device)
+    if live is not None:
+        live.zero_()
 
     for s in range(spp):
         su = sample_base + s
@@ -206,6 +258,11 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, config, res, res2):
             # ---- per-sphere loop, expanded quadratic -------------------
             o_dot_d = ox * dx + oy * dy + oz * dz
             o2 = ox * ox + oy * oy + oz * oz
+            if live is not None:
+                live[0] += _live_clusters(bounds, alive, ox, oy, oz, dx, dy,
+                                          dz, o_dot_d, o2, t_min).sum(
+                                              1, dtype=live.dtype)
+                live[1] += alive.to(live.dtype)
             c_dot_d = gx * dx[:, None] + gy * dy[:, None] + gz * dz[:, None]
             o_dot_c = ox[:, None] * gx + oy[:, None] * gy + oz[:, None] * gz
             half_b = o_dot_d[:, None] - c_dot_d
@@ -259,6 +316,20 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, config, res, res2):
     return torch.stack([fb_r, fb_g, fb_b], dim=1)
 
 
+def _live_clusters(bounds, alive, ox, oy, oz, dx, dy, dz, o_dot_d, o2,
+                   t_min):
+    """The clusters live for each alive lane by the culled kernel's bound
+    test (the far root of the expanded quadratic against the cluster's
+    bounding sphere > t_min) -> bool [lanes, clusters]."""
+    bx, by, bz, bkq = bounds.T.contiguous().unbind(0)
+    c_dot_d = bx * dx[:, None] + by * dy[:, None] + bz * dz[:, None]
+    o_dot_c = ox[:, None] * bx + oy[:, None] * by + oz[:, None] * bz
+    hb = o_dot_d[:, None] - c_dot_d
+    cq = o2[:, None] - 2.0 * o_dot_c + bkq
+    rfar = torch.sqrt(hb * hb - cq) - hb
+    return (rfar > t_min) & alive[:, None]
+
+
 # --- the wrapper ----------------------------------------------------------
 
 
@@ -269,7 +340,7 @@ def _k2_launcher():
     vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                          ctypes.c_float)
     fn.argtypes = [vp, vp, i32, vp, vp, i32, i32, vp, i32, i32, vp, vp, vp,
-                   i32, i32, u32, u32, i32, i32, f32, f32, i32, i32, vp]
+                   i32, i32, u32, u32, i32, i32, f32, f32, i32, i32, vp, vp]
     fn.restype = i32
     return fn
 
@@ -287,7 +358,7 @@ def _check_frame(table, cam16, config: RenderConfig, sample_base: int):
 def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
                  sample_base: int = 0, with_residuals: bool = True,
                  record_second: bool = False, pixel_base=None,
-                 num_local=None, clusters=None):
+                 num_local=None, clusters=None, live=None):
     """K2: render `config`'s frame, or one stripe of it, from the sphere
     table and packed camera.
 
@@ -300,7 +371,12 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     when `with_residuals` (else None), res2 the runner-ups when
     `record_second` (else None).  `clusters` (a `ClusterPlan` of this
     scene's sphere count) selects the cluster-culled loop; the residuals
-    are scene indices either way.
+    are scene indices either way.  `live` (with `clusters`; None on the
+    main path) is an int32 [2, npix] buffer on the table's device: the
+    culled launch writes each pixel's queued (cluster, pixel) pairs, its
+    live clusters summed over its rounds, into live[0] and its rounds into
+    live[1], and adds their sums to the counters `k2.pairs` and
+    `k2.lane_rounds`, which waits for the launch.
 
     CUDA tensors launch the kernel (and count one in the counter
     `k2.launches`, and in `k2.launches_clustered` when culled); CPU
@@ -314,16 +390,17 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
     if device.type == "cpu":
         return record_frame_plain(table, cam16, config, frame, sample_base,
                                   with_residuals, record_second, pixel_base,
-                                  num_local, clusters)
+                                  num_local, clusters, live)
     if device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA (or its twin on CPU), not {device}")
+    if live is not None:
+        _check_live(live, table, clusters, config, pixel_base, num_local)
     bounds = members = None
     if clusters is not None:
         # Bounds from the live table; rows gathered into Morton order so
         # that a cluster's members are contiguous float4 loads.
         order = _members(table, clusters)  # checks the plan
-        bounds = torch.stack(cluster_bounds(table[:, :3], table[:, 3],
-                                            clusters), dim=1).contiguous()
+        bounds = _bounds(table, clusters)
         members = order.to(torch.int32)
         table = table[order]
     geom, attr = _record_tables(table)
@@ -349,12 +426,15 @@ def record_frame(table, cam16, config: RenderConfig, frame: int = 0,
                      int(with_residuals) + int(record_second),
                      frame_seed(config, frame), sample_base, spp, depth,
                      config.t_min, config.t_max, config.width, config.height,
-                     stream)
+                     0 if live is None else live.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed with cudaError_t {err}")
     count("k2.launches")
     if clusters is not None:
         count("k2.launches_clustered")
+    if live is not None:
+        count("k2.pairs", int(live[0].sum()))
+        count("k2.lane_rounds", int(live[1].sum()))
     if num_local is None:
         img = img.reshape(config.height, config.width, 3)
     return img, res, res2

@@ -289,3 +289,55 @@ def test_what_the_cluster_options_reject():
         k2.render_pallas(small, cam, cfg, clusters=plan)
     with pytest.raises(ValueError, match="cluster_size"):
         cluster_scene(scene, cluster_size=0)
+
+
+@pytest.mark.parametrize("size", [1, 5])
+def test_twin_live_counts_each_pixels_rounds_and_live_clusters(size):
+    """`live` through the twin (record_frame on CPU tensors): live[1] is
+    each pixel's rounds, between its recorded hits and those plus one miss
+    a sample; live[0] its live clusters summed over them, at least one a
+    hit (the winner's cluster is live) and at most every cluster a round;
+    the image and residuals are those of the launch without `live`, and a
+    stripe's counts are the frame's slice."""
+    cfg = RenderConfig(**KW)
+    scene, _ = tsc.rtiow_final_scene(seed=3, grid=2)
+    cam = tsc.rtiow_final_camera(cfg.aspect)
+    table, cam16 = k2._operands(scene, cam)
+    plan = cluster_scene(scene, cluster_size=size)
+    live = torch.full((2, cfg.num_pixels), -5, dtype=torch.int32)
+    got = k2.record_frame(table, cam16, cfg, 2, record_second=True,
+                          clusters=plan, live=live)
+    want = k2.record_frame(table, cam16, cfg, 2, record_second=True,
+                           clusters=plan)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    pairs, rounds = live
+    hits = (got[1] >= 0).sum((0, 1)).to(torch.int32)
+    assert bool((rounds >= hits).all())
+    assert bool((rounds <= hits + cfg.samples_per_pixel).all())
+    assert bool((pairs >= hits).all())
+    assert bool((pairs <= rounds * plan.n_clusters).all())
+    assert int(pairs.sum()) < int(rounds.sum()) * plan.n_clusters
+    n, local = cfg.num_pixels, cfg.num_pixels // 4
+    part = torch.zeros((2, local), dtype=torch.int32)
+    k2.record_frame_plain(table, cam16, cfg, 2, clusters=plan, live=part,
+                          pixel_base=local, num_local=local)
+    assert torch.equal(part, live[:, local:2 * local])
+
+
+def test_live_needs_a_plan_and_its_buffer():
+    cfg = RenderConfig(**KW)
+    scene, _ = tsc.rtiow_final_scene(seed=3, grid=2)
+    table, cam16 = k2._operands(scene, tsc.rtiow_final_camera(cfg.aspect))
+    plan = cluster_scene(scene, cluster_size=5)
+    n = cfg.num_pixels
+    with pytest.raises(ValueError, match="needs clusters"):
+        k2.record_frame(table, cam16, cfg,
+                        live=torch.zeros((2, n), dtype=torch.int32))
+    for bad, err in (((2, n - 1), ValueError), ((n,), ValueError)):
+        with pytest.raises(err, match="shape"):
+            k2.record_frame(table, cam16, cfg, clusters=plan,
+                            live=torch.zeros(bad, dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32"):
+        k2.record_frame_plain(table, cam16, cfg, clusters=plan,
+                              live=torch.zeros((2, n)))
