@@ -89,13 +89,14 @@
 //     old = atomicMin(W, w); of w and old, the larger is a candidate for R
 //     when its t is strictly greater than the smaller's (a displaced winner,
 //     or a w that lost), and so is r; the least candidate goes into R by a
-//     second atomicMin.  Every candidate's t exceeds the final W's (W only
-//     falls), and the least hit above the final W's t is a candidate: it is
-//     some cluster's r, or some cluster's w, which is compared with a key W
-//     held below it whose t, were it equal, would make that key the lesser
-//     hit above the final t.  So the keys end as the parent's W and R, bit
-//     for bit, in any order of the atomics, and members[row] maps a row to
-//     its scene index at the store.
+//     second atomicMin.  Every candidate's t exceeds the final W's, since W
+//     only falls.  And the least hit above the final W's t, R*, is offered:
+//     if it is some cluster's r, as r; if it is some cluster's w, it met a
+//     lesser key in W (at its own atomic, or when a later key displaced
+//     it), and that key's t is below R*'s, since an equal t would make that
+//     key a lesser hit than R* above the final t.  So the keys end as the
+//     parent's W and R, bit for bit, in any order of the atomics, and
+//     members[row] maps a row to its scene index at the store.
 // With live != nullptr each lane also writes its queued pairs and its
 // rounds, each summed over the launch (live[i], live[n_pix + i]).
 //
@@ -116,25 +117,21 @@
 // tests (a cluster each, with an IEEE sqrtf), its lanes' live clusters'
 // member tests, which read rows the warp's other threads may not (no
 // broadcast), and a vote, a queue store and up to two atomicMins a live
-// cluster.  The residual stores are 2 (int16) or 4 (int32) bytes per
-// (sample, bounce, pixel): the brute-force loop writes a warp's as one
-// coalesced transaction; in the round loop a warp's threads sit at
-// different (s, b), so a warp store is up to 32 scattered writes (K4, the
-// same schedule: at most 1% at depth 8).  A -1 prefill of res and res2 (a
-// memset) in place of the dead paths' stores gave K4 no steady gain for its
-// bytes (3.9 GB at 1200x800x256x8), so the stores stay in the kernel.
+// cluster.  On the inverse cell's scene at L = 12 a lane-round queues 10.7
+// of 41 clusters, where a per-thread cull walked 15.5 (PERF.md).  The
+// residual stores are 2 (int16) or 4 (int32) bytes per (sample, bounce,
+// pixel): the brute-force loop writes a warp's as one coalesced
+// transaction; in the round loop a warp's threads sit at different (s, b),
+// so a warp store is up to 32 scattered writes (K4, the same schedule: at
+// most 1% at depth 8).  A -1 prefill of res and res2 (a memset) in place
+// of the dead paths' stores gave K4 no steady gain for its bytes (3.9 GB at
+// 1200x800x256x8), so the stores stay in the kernel.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "common.cuh"
-
-// The culled kernel's schedule for the form tool's A/B: 0 = the pair queue
-// (kept), 1 = per-lane refill rounds with each lane's own per-thread cull.
-#ifndef BRT_K2_FORM
-#define BRT_K2_FORM 0
-#endif
 
 namespace {
 
@@ -143,16 +140,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kAll = 0xffffffffu;
 // The culled kernel's queue of (cluster, lane) pairs, per warp: swept
 // whenever another cluster's votes might not fit, so any cluster count goes
-// through it in passes (k1_render.cu's size).
-#ifndef BRT_K2_QUEUE
-#define BRT_K2_QUEUE 512
-#endif
-#ifndef BRT_K2_BLOCKS
-#define BRT_K2_BLOCKS 8
-#endif
-constexpr int kQueue = BRT_K2_QUEUE;
-// Blocks of the culled kernel an SM must hold, for __launch_bounds__.
-constexpr int kCulledBlocks = BRT_K2_BLOCKS;
+// through it in passes.  At the inverse cell's render 256 was 8.6% slower
+// and 1,024 3.7% slower (PERF.md, section 6).
+constexpr int kQueue = 512;
+// Blocks of the culled kernel an SM must hold, for __launch_bounds__: at 8
+// ptxas keeps it in 64 registers with no spill; 7 was 4.9% slower and 6
+// 12.9% slower at the cell's render (PERF.md, section 6).
+constexpr int kCulledBlocks = 8;
 // A lane's key before any pair of the round found a hit.
 constexpr unsigned long long kNoHit = ~0ull;
 
@@ -480,13 +474,10 @@ __global__ void __launch_bounds__(kThreads, kCulledBlocks)
       ++rounds;
       o_dot_d = o[0] * d[0] + o[1] * d[1] + o[2] * d[2];
       o2 = o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
-#if BRT_K2_FORM == 0
       q.o[me] = make_float4(o[0], o[1], o[2], o_dot_d);
       q.d[me] = make_float4(d[0], d[1], d[2], o2);
-#endif
     }
     Nearest nh = {t_max, t_max, -1, -1};
-#if BRT_K2_FORM == 0
     q.key[me] = kNoHit;
     if (RECORD == 2) q.key2[me] = kNoHit;
     __syncwarp();
@@ -543,25 +534,6 @@ __global__ void __launch_bounds__(kThreads, kCulledBlocks)
           nh.bidx2 = static_cast<int>(static_cast<uint32_t>(key2));
       }
     }
-#else
-    if (on) {
-      for (int ci = 0; ci < n_clusters; ++ci) {
-        const float4 bs = row4<SMEM>(bnds, ci);
-        const float c_dot_d = bs.x * d[0] + bs.y * d[1] + bs.z * d[2];
-        const float o_dot_c = o[0] * bs.x + o[1] * bs.y + o[2] * bs.z;
-        const float hb = o_dot_d - c_dot_d;
-        const float cq = o2 - 2.0f * o_dot_c + bs.w;
-        const float rfar = sqrtf(hb * hb - cq) - hb;
-        if (!(rfar > t_min)) continue;  // NaN: the ray misses the bound
-        ++pairs;
-        const int lo = ci * cluster_size;
-        const int hi = min(lo + cluster_size, n_spheres);
-        for (int i = lo; i < hi; ++i)
-          test_sphere<RECORD>(row4<SMEM>(rows, i), i, o, d, o_dot_d, o2,
-                              t_min, nh);
-      }
-    }
-#endif
     if (!on) continue;
     // ---- C: the residuals, and the rest of the round ----------------------
     const float bt = nh.bt;
@@ -721,10 +693,10 @@ extern "C" int brt_k2_record(const void* geom, const void* attr,
                              void* live, void* stream) {
   if (n_pix <= 0) return static_cast<int>(cudaSuccess);
   const bool clustered = bounds != nullptr;
-  if (clustered ? (members == nullptr || cluster_size < 1 ||
-                   n_clusters != (n_spheres + cluster_size - 1) / cluster_size ||
-                   n_clusters > (1 << 26))
-                : live != nullptr)
+  const bool bad_plan =
+      members == nullptr || cluster_size < 1 || n_clusters > (1 << 26) ||
+      n_clusters != (n_spheres + cluster_size - 1) / cluster_size;
+  if (clustered ? bad_plan : live != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
 #define BRT_K2_LAUNCH(T, R)                                                  \
   return launch_record<T, R>(geom, attr, n_spheres, bounds, members,         \

@@ -29,7 +29,17 @@ plan's Morton order and computes the clusters' bounding spheres from the
 live table on its device (`cluster_bounds`), and the kernel walks only the
 members of the clusters a ray's bound test hits.  Image and paths are those
 of the brute-force loop except where two different spheres tie exactly
-(the members are visited in Morton order).
+(the members are visited in Morton order).  The plain twin with `clusters=`
+is the brute-force loop over the members in Morton order, WITHOUT the bound
+test: it shares no arithmetic with the cull, so a kernel-vs-twin difference
+on the card exposes a bound that is not conservative instead of repeating
+it.  Deliberate divergences from the reference: residuals are SCENE indices
+with or without a plan (the TPU kernel records indices into its permuted
+table and hands the permutation to the replay), so the replay needs no
+plan and int16 depends on the scene's count only; any `cluster_size` >= 1
+is taken (the TPU kernel needs a multiple of its unroll); pad slots are not
+visited.  The TPU tiling options (tile_rows, unroll, skip_dead_tiles) do
+not exist here.
 
 The plan picks the kernel, and with it the schedule.  Without one,
 `k2_record_kernel` runs the nested loop (a thread a pixel, for each sample
@@ -42,17 +52,7 @@ lane) pair queue, which sweeps each lane's own live clusters, not the union
 of its warp's; the winner and runner-up of the clusters are merged by
 atomicMin on (t, row) keys, which gives the sequential loop's bits (the
 kernel's header has the argument).  Both kernels add each pixel's samples in
-order, so the image does not depend on the schedule.  The plain twin with `clusters=`
-is the brute-force loop over the members in Morton order, WITHOUT the bound
-test: it shares no arithmetic with the cull, so a kernel-vs-twin difference
-on the card exposes a bound that is not conservative instead of repeating
-it.  Deliberate divergences from the reference: residuals are SCENE indices
-with or without a plan (the TPU kernel records indices into its permuted
-table and hands the permutation to the replay), so the replay needs no
-plan and int16 depends on the scene's count only; any `cluster_size` >= 1
-is taken (the TPU kernel needs a multiple of its unroll); pad slots are not
-visited.  The TPU tiling options (tile_rows, unroll, skip_dead_tiles) do
-not exist here.
+order, so the image does not depend on the schedule.
 """
 
 from __future__ import annotations
@@ -260,8 +260,7 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, config, res, res2,
             o2 = ox * ox + oy * oy + oz * oz
             if live is not None:
                 live[0] += _live_clusters(bounds, alive, ox, oy, oz, dx, dy,
-                                          dz, o_dot_d, o2, t_min).sum(
-                                              1, dtype=live.dtype)
+                                          dz, o_dot_d, o2, t_min)
                 live[1] += alive.to(live.dtype)
             c_dot_d = gx * dx[:, None] + gy * dy[:, None] + gz * dz[:, None]
             o_dot_c = ox[:, None] * gx + oy[:, None] * gy + oz[:, None] * gz
@@ -318,16 +317,16 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, config, res, res2,
 
 def _live_clusters(bounds, alive, ox, oy, oz, dx, dy, dz, o_dot_d, o2,
                    t_min):
-    """The clusters live for each alive lane by the culled kernel's bound
+    """Each alive lane's count of live clusters by the culled kernel's bound
     test (the far root of the expanded quadratic against the cluster's
-    bounding sphere > t_min) -> bool [lanes, clusters]."""
+    bounding sphere > t_min) -> int32 [lanes]."""
     bx, by, bz, bkq = bounds.T.contiguous().unbind(0)
     c_dot_d = bx * dx[:, None] + by * dy[:, None] + bz * dz[:, None]
     o_dot_c = ox[:, None] * bx + oy[:, None] * by + oz[:, None] * bz
     hb = o_dot_d[:, None] - c_dot_d
     cq = o2[:, None] - 2.0 * o_dot_c + bkq
     rfar = torch.sqrt(hb * hb - cq) - hb
-    return (rfar > t_min) & alive[:, None]
+    return ((rfar > t_min) & alive[:, None]).sum(1, dtype=torch.int32)
 
 
 # --- the wrapper ----------------------------------------------------------
