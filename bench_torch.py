@@ -89,6 +89,13 @@ def log(msg):
     print(msg, file=sys.stderr, flush=True)
 
 
+def pallas_only(backend, cluster_size):
+    """A session's cluster size: --cluster-size is the "pallas" session's;
+    every other backend's session stays unculled (0), as the bench has
+    always measured the "cuda" one."""
+    return cluster_size if backend == "pallas" else 0
+
+
 def make_render_fn(backend, scene, cluster_size):
     """backend name -> render(scene, camera, config, frame)."""
     if backend == "cuda":
@@ -143,7 +150,7 @@ def run_verify(scene, camera_fn, cluster_size, device, backend):
            for b in ("torch", "pallas", "cuda")}
     fns["sweep"] = lambda s, c, k, f: render_sweep_record(s, c, k, f)[0]
     session = Renderer(cfg, backend=backend, device=device,
-                       cluster_size=cluster_size)
+                       cluster_size=pallas_only(backend, cluster_size))
 
     def session_frame(s, c, k, f):
         session.frame = f
@@ -273,7 +280,7 @@ def run_reference_workload(backend, device, cluster_size=12):
     scene, _ = reference_scene(seed=0, device=device)
     cam = rtiow_final_camera(cfg.aspect, device=device)
     r = Renderer(cfg, backend=backend, device=device,
-                 cluster_size=cluster_size)
+                 cluster_size=pallas_only(backend, cluster_size))
 
     def frame(i):
         r.frame = i

@@ -6,9 +6,12 @@ defaults, on the port's backends:
 
     --backend cuda    (the default) the K1 kernel through the `Renderer`
                       session with cost-balanced scheduling: the
-                      reference's `mxu`;
+                      reference's `mxu`; dense unless `--cluster-size` is
+                      given, then K1's chunk-culled traversal (the same
+                      image);
     --backend pallas  the K2 kernel with the cluster-culled traversal
-                      (`--cluster-size`, 0 = brute force);
+                      (`--cluster-size`, 12 unless given, 0 = brute
+                      force);
     --backend torch   the differentiable wavefront: the reference's `xla`.
 
 Every command runs on the CUDA device and raises where there is none;
@@ -19,6 +22,8 @@ Usage:
     python -m bevy_raytrace_tpu_torch.cli render  --scene rtiow -o out.png
     python -m bevy_raytrace_tpu_torch.cli render  --scene reference \
         --width 1920 --height 1080 --spp 1 --depth 3 -o frame.png
+    python -m bevy_raytrace_tpu_torch.cli render  --scene sphereflake \
+        --width 512 --height 512 --spp 256 --cluster-size 12 -o flake.png
     python -m bevy_raytrace_tpu_torch.cli animate --frames 24 -o frames/
     python -m bevy_raytrace_tpu_torch.cli serve   --spp 4    # live viewer
     python -m bevy_raytrace_tpu_torch.cli inverse --steps 200 -o recovered.png
@@ -56,7 +61,8 @@ def _cluster_size(v):
 
 def _add_render_args(p):
     p.add_argument("--scene", default="rtiow",
-                   choices=["config1", "config2", "rtiow", "reference"])
+                   choices=["config1", "config2", "rtiow", "reference",
+                            "sphereflake"])
     p.add_argument("--width", type=int, default=1200)
     p.add_argument("--height", type=int, default=800)
     p.add_argument("--spp", type=int, default=64)
@@ -76,9 +82,10 @@ def _add_render_args(p):
                    default="cuda",
                    help="compute path (cuda = the K1 kernel, fastest; "
                         "pallas = the K2 kernel; torch = the wavefront)")
-    p.add_argument("--cluster-size", type=_cluster_size, default=12,
-                   help="cluster-culled traversal granularity (pallas "
-                        "backend; 0 = brute force)")
+    p.add_argument("--cluster-size", type=_cluster_size, default=None,
+                   help="cluster-culled traversal granularity: pallas "
+                        "backend 12 unless given, cuda backend culls only "
+                        "when given; 0 = brute force")
     p.add_argument("--device", default=None,
                    help="where to run: the CUDA device by default; 'cpu' "
                         "runs the plain PyTorch paths on the CPU")
@@ -113,6 +120,8 @@ def _build(args, device):
             args.seed, device=device), scenes.rtiow_final_camera),
         "reference": (lambda device: scenes.reference_scene(
             args.seed, device=device), scenes.rtiow_final_camera),
+        "sphereflake": (scenes.sphereflake_scene,
+                        scenes.sphereflake_camera),
     }
     scene_fn, cam_fn = makers[args.scene]
     scene, registry = scene_fn(device=device)
@@ -223,10 +232,11 @@ def _make_step(config, args, device, mesh):
     if backend in ("cuda", "pallas"):
         # The Renderer session.  cuda: frame 0 probes the cost map once,
         # later frames reuse the cached permutation (re-probed every
-        # --replan-interval frames).  pallas: the session plans the
-        # clusters from the first scene it is given (scenes of at least
+        # --replan-interval frames).  pallas, and cuda given
+        # --cluster-size: the session plans the clusters from the first
+        # scene it is given (scenes of at least
         # `engine.MIN_CLUSTERED_SPHERES` spheres; a smaller one runs the
-        # brute-force loop, which gives the same image) and keeps the plan.
+        # unculled loop, which gives the same image) and keeps the plan.
         from bevy_raytrace_tpu_torch.wavefront.engine import Renderer
 
         renderer = Renderer(

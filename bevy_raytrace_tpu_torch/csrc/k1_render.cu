@@ -50,8 +50,8 @@
 //   * tests its ray against every chunk's bounding sphere: a chunk is live
 //     when the point of [t_min, t_ub] nearest the bound's center lies
 //     inside it, widened by a slack for the member test's own rounding that
-//     grows with the ray's squared distance to the bound (chunk_live; no
-//     root taken);
+//     grows with the ray's squared distance to the bound and with the
+//     chunk's factor, br / r_min at most (chunk_live; no root taken);
 //   * gets the (t, scene index)-least valid root among the members of its
 //     live chunks: the dense sweep's winner, tie rule included, since the
 //     bound test is conservative against the member test (clusters.py
@@ -316,13 +316,16 @@ __device__ __forceinline__ float upper_bound(
 }
 
 // Whether the ray may meet a member of the chunk bounded by b = (bx, by,
-// bz, br^2) in [t_min, t_ub]: whether the point of the segment nearest the
-// bound's center, v = ob + t* d at t* = -hb clamped to [t_min, t_ub],
-// passes |v|^2 <= br^2 + kSlack (|v|^2 + hb^2).  For a unit d, |v|^2 + hb^2
-// = |ob|^2 + (t* + hb)^2 >= |ob|^2: the slack grows with the ray's squared
-// distance to the bound, for two operations more.  Without it this is the
-// chord test (far root >= t_min, near root <= t_ub), closed at both ends,
-// with no root taken.
+// bz, br^2) with slack factor f in [t_min, t_ub]: whether the point of the
+// segment nearest the bound's center, v = ob + t* d at t* = -hb clamped to
+// [t_min, t_ub], passes |v|^2 <= br^2 + kSlack f (|v|^2 + hb^2).  For a
+// unit d, |v|^2 + hb^2 = |ob|^2 + (t* + hb)^2 >= |ob|^2: the slack grows
+// with the ray's squared distance to the bound, for two operations more.
+// Without it this is the chord test (far root >= t_min, near root <= t_ub),
+// closed at both ends, with no root taken.  f is clusters.py's per-chunk
+// factor: 1 + max |c - b| / r over the chunk's members (times 1.0001), so
+// f >= (|c - b| + r) / r for each member, f <= br / r_min, and f = 1 for a
+// chunk of one sphere (b = c bit for bit).
 //
 // Why the slack (u = 2^-24; for a member (c, r^2) of the chunk, X = |oc|^2
 // of the member test's rounded oc, h = oc . d exactly; |d|^2 = 1 + e with
@@ -336,7 +339,8 @@ __device__ __forceinline__ float upper_bound(
 // squared miss distance, from a small sphere seen from afar (X large),
 // which a bound test that rounds accurately would reject.
 // At cluster size 1 the bound is its member: b = c bit for bit, so ob = oc
-// bit for bit, and fl(br^2) >= fl(r^2) (1 + 2e-4) by clusters.py's margin.
+// bit for bit, f = 1, and fl(br^2) >= fl(r^2) (1 + 2e-4) by clusters.py's
+// margin.
 //   * t* = -hb unclamped: |v|^2 = Q + (hb - h)^2 + e t*^2 < r^2 + 24 u X.
 //   * t* clamped: a member root t_f beyond t_ub cannot win (t_ub is a valid
 //     root by the same arithmetic, brt::sweep_root), so t_f lies in (t_min,
@@ -350,16 +354,38 @@ __device__ __forceinline__ float upper_bound(
 // conservative at cluster size 1 with 22% to spare; on grazing rays aimed
 // at 2,000 seeded spheres 8 u already keeps every hit's chunk live and no
 // slack does not (tests/test_torch_k1_cull.py).
-// At L > 1 the bound's center is the members' centroid: the same shell of
-// 26.1 u X around a member of radius r that touches the bound's rim asks
-// about (br / r) 26.1 u X of br^2, where at L = 1 it asks 26.1 u X.  The
-// slack and the margin's 2e-4 br (1 + br) cover that while br / r is
-// small: rays grazing members on their rim side at L = 2 and 4 keep their
-// chunks (tests/test_torch_k1_cull.py; without the slack some do not), and
-// no lane differed from dense on the card at L = 2, 3, 4, 6, 8, 12, 24 and
-// 64 (PERF.md, section 6).
-// For a member far smaller than its chunk that is measured, not proven.
-__device__ __forceinline__ bool chunk_live(const float4 b, const float (&o)[3],
+// At any cluster size, for a member of radius r at g = |c - b| from the
+// bound's center, m = g + r <= br / 1.0001, and a = |ob|, X_b = a^2:
+//   * the bullets above, with the member as its own bound, give a t0 in
+//     [t_min, t_ub] with |oc + t0 d|^2 < r^2 + 26.1 u X =: r^2 + D (t0 is
+//     that test's clamped t*);
+//   * ob = oc + (c - b) + n, |n| <= u (a + |oc|) (each subtraction rounds
+//     its components), so |ob + t0 d| <= sqrt(r^2 + D) + g + |n|, and
+//     (sqrt(r^2 + D) + g)^2 - m^2 = D (1 + 2 g / (sqrt(r^2 + D) + r)) <=
+//     D m / r <= f D, for any D >= 0: the shell of the member test's
+//     rounding around a member on the bound's rim widens the bound's
+//     squared radius by f times it, by m / r where the member is r across;
+//   * X <= 1.1 X_b + 11 g^2 (by |oc| <= a + g + |n|): so the segment's
+//     least |ob + t d|^2 is < m^2 (1 + 2 u) + u X_b (28.71 f + 2.1) + u g^2
+//     (287.1 f + 11), the last two from f D and from |n|;
+//   * the test's own arithmetic, as at cluster size 1: t* = clamp(-hb)
+//     lies within 16 u a of the exact least point (a u^2 X_b term), the
+//     computed |v|^2 is (1 + 5 u) the exact one, and the slack's operand
+//     is >= X_b (1 - 25 u).
+// So the slack kSlack f X_b = 32 f u X_b covers the X_b term (30.81 f u X_b
+// at most, with 3.7% to spare), and the g^2 term, at most 298.1 f u m^2,
+// asks the bound's radius to grow with f: clusters.py widens br by 1 + 160
+// u (f - 1) beyond its margin of 1.0001, which with the margin's 2e-4 m^2
+// covers 320 u f m^2 and the relative roundings.  The widening is 1 at f =
+// 1, so a chunk of one sphere keeps the bits of cluster size 1.  The
+// factor is per chunk: a member far smaller than its chunk (on the SPD
+// sphereflake, br / r_min up to 185 outside the ground's chunk) gets its
+// chunk's slack scaled by up to that, and the rest of its chunks keep
+// theirs.  tests/test_torch_k1_cull.py aims grazing rays at members 50-200x
+// smaller than their chunk's bound: with f every hit keeps its chunk, with
+// f = 1 some do not.
+__device__ __forceinline__ bool chunk_live(const float4 b, float f,
+                                           const float (&o)[3],
                                            const float (&d)[3], float t_min,
                                            float t_ub) {
   const float bx = o[0] - b.x, by = o[1] - b.y, bz = o[2] - b.z;
@@ -369,7 +395,14 @@ __device__ __forceinline__ bool chunk_live(const float4 b, const float (&o)[3],
   const float vx = __fmaf_rn(ts, d[0], bx), vy = __fmaf_rn(ts, d[1], by),
               vz = __fmaf_rn(ts, d[2], bz);
   const float v2 = __fmaf_rn(vx, vx, __fmaf_rn(vy, vy, __fmul_rn(vz, vz)));
-  return v2 <= __fmaf_rn(kSlack, __fmaf_rn(hb, hb, v2), b.w);
+  return v2 <= __fmaf_rn(__fmul_rn(kSlack, f), __fmaf_rn(hb, hb, v2), b.w);
+}
+
+// A chunk's slack factor: from shared memory (SMEM) or the read-only cache.
+template <bool SMEM>
+__device__ __forceinline__ float factor_of(const float* __restrict__ p,
+                                           int i) {
+  return SMEM ? p[i] : __ldg(p + i);
 }
 
 // The warp sweeps the first `count` pairs of q in strides of 32: a thread
@@ -427,7 +460,8 @@ __device__ __forceinline__ void sweep_pairs(
 }
 
 // K1 with the chunk-culled traversal: as k1_render_kernel, with the rows
-// (geom, attr) in the plan's order, bounds [n_chunks], members [n_spheres]
+// (geom, attr) in the plan's order, bounds [n_chunks] and their slack
+// factors factor [n_chunks], members [n_spheres]
 // (row -> scene index), row_of [n_spheres] (its inverse), prio [n_prio],
 // live [n_lanes] or nullptr, max_rounds 0 or the rounds after which a lane
 // stops.  A warp runs its rounds together: every thread stays in the loop
@@ -444,12 +478,14 @@ __device__ __forceinline__ void sweep_pairs(
 //      shades, as the dense kernel does.
 // So the member work is each lane's own live chunks, spread over the warp,
 // not the union of its lanes' live chunks that a per-thread cull walks.
-// SMEM stages the rows, the bounds and the priority rows, in that order.
+// SMEM stages the rows, the bounds, the priority rows and the factors (four
+// to a row), in that order.
 template <bool SMEM>
 __global__ void __launch_bounds__(kThreads, kCulledBlocks)
     k1_culled_kernel(const float4* __restrict__ geom,
                      const float4* __restrict__ attr, int n_spheres,
                      const float4* __restrict__ bounds,
+                     const float* __restrict__ factor,
                      const int* __restrict__ members,
                      const int* __restrict__ row_of,
                      const float4* __restrict__ prio, int n_chunks, int chunk,
@@ -468,11 +504,19 @@ __global__ void __launch_bounds__(kThreads, kCulledBlocks)
       staged[n_spheres + j] = __ldg(bounds + j);
     for (int j = threadIdx.x; j < n_prio; j += kThreads)
       staged[n_spheres + n_chunks + j] = __ldg(prio + j);
+    float* fs = reinterpret_cast<float*>(staged + n_spheres + n_chunks +
+                                         n_prio);
+    for (int j = threadIdx.x; j < n_chunks; j += kThreads)
+      fs[j] = __ldg(factor + j);
     __syncthreads();
   }
   const float4* rows = SMEM ? staged : geom;
   const float4* bnds = SMEM ? staged + n_spheres : bounds;
   const float4* prs = SMEM ? staged + n_spheres + n_chunks : prio;
+  const float* fct =
+      SMEM ? reinterpret_cast<const float*>(staged + n_spheres + n_chunks +
+                                            n_prio)
+           : factor;
   WarpQueue& q = queues[threadIdx.x >> 5];
   const int me = threadIdx.x & 31;
   const unsigned below = (1u << me) - 1u;
@@ -514,7 +558,8 @@ __global__ void __launch_bounds__(kThreads, kCulledBlocks)
       if (on) {
         const int n = min(32, n_chunks - c0);
         for (int k = 0; k < n; ++k)
-          if (chunk_live(row4<SMEM>(bnds, c0 + k), o, d, t_min, t_ub))
+          if (chunk_live(row4<SMEM>(bnds, c0 + k),
+                         factor_of<SMEM>(fct, c0 + k), o, d, t_min, t_ub))
             mask |= 1u << k;
         live += static_cast<float>(__popc(mask));
       }
@@ -589,7 +634,8 @@ extern "C" int brt_k1_table_bytes_limit(int min_blocks, int* out) {
 }
 
 // The same for the culled kernel, whose staged table holds the rows, the
-// bounds and the priority rows (16 bytes each), beside its warps' queues.
+// bounds and the priority rows (16 bytes each) and the bounds' factors (4
+// bytes each), beside its warps' queues.
 extern "C" int brt_k1_culled_table_bytes_limit(int min_blocks, int* out) {
   return static_cast<int>(brt::table_bytes_limit(k1_culled_kernel<true>,
                                                  kThreads, min_blocks, out));
@@ -622,16 +668,18 @@ extern "C" int brt_k1_render(const void* geom, const void* attr, int n_spheres,
 }
 
 // Launches the chunk-culled K1: as brt_k1_render, with geom and attr in the
-// plan's order, bounds [n_chunks] float4 (bx, by, bz, br^2), members [S]
+// plan's order, bounds [n_chunks] float4 (bx, by, bz, br^2), factor
+// [n_chunks] float (each bound's slack factor), members [S]
 // int32 (row -> scene index, a permutation) and row_of [S] int32 (its
 // inverse), prio [n_prio] float4 (cx, cy, cz, r^2), chunk >= 1 rows a chunk
 // and n_chunks = ceil(S / chunk); live [n_lanes] float (each lane's live
 // chunks summed over its rounds) or nullptr; max_rounds 0 or the rounds
-// after which a lane stops.  table_mode 1 stages S + n_chunks + n_prio
-// rows.
+// after which a lane stops.  table_mode 1 stages S + n_chunks + n_prio +
+// ceil(n_chunks / 4) rows.
 extern "C" int brt_k1_render_culled(
     const void* geom, const void* attr, int n_spheres, const void* bounds,
-    const void* members, const void* row_of, const void* prio, int n_chunks,
+    const void* factor, const void* members, const void* row_of,
+    const void* prio, int n_chunks,
     int chunk, int n_prio, const void* cam, const void* pids, int n_lanes,
     void* fb, void* len, void* live, unsigned int seed,
     unsigned int sample_base, int spp, int max_depth, float t_min, int width,
@@ -639,14 +687,15 @@ extern "C" int brt_k1_render_culled(
   if (n_spheres < 1 || (table_mode != 0 && table_mode != 1) || chunk < 1 ||
       n_chunks != (n_spheres + chunk - 1) / chunk || n_chunks > (1 << 26) ||
       n_prio < 0 || max_rounds < 0 || bounds == nullptr ||
-      members == nullptr || row_of == nullptr ||
+      factor == nullptr || members == nullptr || row_of == nullptr ||
       (n_prio > 0 && prio == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(k1_culled_kernel<true>, k1_culled_kernel<false>,
-                n_spheres + n_chunks + n_prio, n_lanes, table_mode, stream,
-                static_cast<const float4*>(geom),
+                n_spheres + n_chunks + n_prio + (n_chunks + 3) / 4, n_lanes,
+                table_mode, stream, static_cast<const float4*>(geom),
                 static_cast<const float4*>(attr), n_spheres,
                 static_cast<const float4*>(bounds),
+                static_cast<const float*>(factor),
                 static_cast<const int*>(members),
                 static_cast<const int*>(row_of),
                 static_cast<const float4*>(prio), n_chunks, chunk, n_prio,

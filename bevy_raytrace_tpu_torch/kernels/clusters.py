@@ -21,7 +21,9 @@ Bounds come in two encodings, one for each kernel's quadratic:
 `cluster_bounds` gives K2's (bx, by, bz, |b|^2 - br^2), `sphere_bounds`
 K1's (bx, by, bz, br^2) with br^2 squared directly, not recovered from
 |b|^2 - kq as the reference's K1 operands are (that difference cancels
-badly for a small bound far from the origin).  `priority_rows` gives the
+badly for a small bound far from the origin), and beside each chunk the
+factor its bound test's slack is scaled by (br / r_min at most; 1 for a
+chunk of one sphere).  `priority_rows` gives the
 live (cx, cy, cz, r^2) of the plan's priority spheres.
 
 The plan's arrays equal the reference's exactly (same numpy arithmetic);
@@ -160,11 +162,32 @@ def cluster_bounds(centers, radii, plan: ClusterPlan):
 
 
 def sphere_bounds(centers, radii, plan: ClusterPlan):
-    """K1's chunk bounds: float32 [C, 4] rows (bx, by, bz, br^2) of the
-    same bounding spheres as `cluster_bounds`, for the centered quadratic of
-    K1's bound test."""
+    """K1's chunk bounds -> (float32 [C, 4] rows (bx, by, bz, br^2), float32
+    [C] slack factors), for the centered quadratic of K1's bound test.
+
+    A chunk's factor F is 1 + max |c - b| / |r| over its real members
+    (times the 1.0001 of `_bounding_spheres`): at least (|c - b| + r) / r
+    for every member, so at most br / r_min, and exactly 1 for a chunk of
+    one member, whose bound center is its center bit for bit.  The bound
+    test scales its slack by F, and the bound's radius is that of
+    `cluster_bounds` times 1 + 160 u (F - 1), u = 2^-24: both as
+    csrc/k1_render.cu's `chunk_live` derives them, so that the test keeps
+    every chunk whose member the member test's rounding calls hit, however
+    small that member is beside its chunk.  At cluster size 1 every factor
+    is 1 and the rows are `cluster_bounds`' spheres.  A member of radius 0
+    gives the factor's cap, 2^64, which keeps its chunk live."""
     bc, br = _bounding_spheres(centers, radii, plan)
-    return torch.cat([bc, (br * br)[:, None]], dim=1).contiguous()
+    L, C = plan.cluster_size, plan.n_clusters
+    perm, m = plan.on(centers.device)
+    c = centers[perm].reshape(C, L, 3)
+    r = radii[perm].abs().reshape(C, L)
+    g = torch.sqrt(((c - bc[:, None, :]) ** 2).sum(dim=-1))  # [C, L]
+    ratio = torch.where((m > 0) & (g > 0), g / r, 0.0)
+    factor = torch.clamp(1.0 + ratio.max(dim=1).values * 1.0001,
+                         max=2.0 ** 64)
+    br = br * (1.0 + 160 * 2.0 ** -24 * (factor - 1.0))
+    return (torch.cat([bc, (br * br)[:, None]], dim=1).contiguous(),
+            factor.contiguous())
 
 
 def priority_rows(centers, radii, plan: ClusterPlan):

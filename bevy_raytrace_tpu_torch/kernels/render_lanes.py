@@ -24,9 +24,11 @@ bound t_ub on its nearest hit from the plan's priority spheres and its own
 previous winner, tests its ray against every chunk's bounding sphere, and
 sweeps the members of the chunks that may hold a hit before t_ub only.  The
 bound test is conservative against the member test's own rounding (a slack
-of `CULL_SLACK` u times the ray's squared distance to the bound, derived at
-the kernel's `chunk_live`) and a tie goes to the lower SCENE index, so the
-image and the cost map equal the dense sweep's bit for bit.  Culled launches
+of `CULL_SLACK` u times the chunk's factor times the ray's squared distance
+to the bound, and a bound widened by that factor, derived at the kernel's
+`chunk_live` for any spread of radii in a chunk) and a tie goes to the
+lower SCENE index, so the image and the cost map equal the dense sweep's
+bit for bit.  Culled launches
 are counted apart too (`k1.launches_culled`); on the card a culled call
 launches the culled kernel or raises, never the dense one.
 
@@ -47,8 +49,9 @@ Deliberate divergences from the reference:
     bounds store br^2 squared directly (`clusters.sphere_bounds`), and pad
     slots are skipped rather than swept as duplicates;
   * the culled bound test carries a slack for the member test's rounding
-    (`CULL_SLACK`), which the reference's has not, so culled equals dense
-    at every cluster size, 1 included;
+    (`CULL_SLACK` times each chunk's factor, `clusters.sphere_bounds`),
+    which the reference's has not, so culled equals dense at every cluster
+    size, 1 included, and at any spread of radii in a chunk;
   * no 2^24 limit on lanes or samples (counters are integers, not f32);
   * the TPU tiling options (tile_rows, v_planes, sphere_chunk, round_unroll,
     debug probes) and `track_len` do not exist: the path-length count costs
@@ -106,16 +109,25 @@ _tables: dict = {}  # ids of the sources -> (sources, versions, tables)
 _tables_lock = threading.Lock()
 
 
+def culled_table_rows(n_spheres: int, n_chunks: int, n_prio: int) -> int:
+    """The 16-byte rows the culled kernel stages in shared memory: the
+    sphere rows, the chunk bounds, the priority rows and the chunks' slack
+    factors, four to a row."""
+    return n_spheres + n_chunks + n_prio + -(-n_chunks // 4)
+
+
 class CullTables(NamedTuple):
     """The culled traversal's operands beside the rows in the plan's order.
 
     bounds: float32 [C, 4], chunk c's bounding sphere (bx, by, bz, br^2);
+    factor: float32 [C], chunk c's slack factor (`clusters.sphere_bounds`);
     members: int32 [S], the scene index of each row (a permutation);
     row_of: int32 [S], the row of each scene index (members' inverse);
     prio: float32 [K, 4], the priority spheres' (cx, cy, cz, r^2);
     cluster_size: L, chunk c owns rows [c L, min((c + 1) L, S))."""
 
     bounds: torch.Tensor
+    factor: torch.Tensor
     members: torch.Tensor
     row_of: torch.Tensor
     prio: torch.Tensor
@@ -132,9 +144,9 @@ def _scene_tables(scene, plan=None):
 
     With `plan` (a `ClusterPlan` of this scene's sphere count) -> (geom,
     attr, CullTables): the rows gathered into the plan's Morton order
-    without its pad slots, the chunks' bounds (bx, by, bz, br^2) and the
-    priority rows from the live geometry, and the row -> scene index map
-    and its inverse.
+    without its pad slots, the chunks' bounds (bx, by, bz, br^2), their
+    slack factors and the priority rows from the live geometry, and the row
+    -> scene index map and its inverse.
 
     Uncached: every call builds new tensors, which the caller owns and may
     edit.  `render_mxu_lanes` goes through `_cached_scene_tables`, which
@@ -147,7 +159,7 @@ def _scene_tables(scene, plan=None):
         row_of = torch.empty_like(members)
         row_of[members] = torch.arange(scene.count, device=members.device)
         return (geom[members].contiguous(), attr[members].contiguous(),
-                CullTables(sphere_bounds(c, r, plan),
+                CullTables(*sphere_bounds(c, r, plan),
                            members.to(torch.int32).contiguous(),
                            row_of.to(torch.int32).contiguous(),
                            priority_rows(c, r, plan), plan.cluster_size))
@@ -234,7 +246,7 @@ def render_lanes_plain(geom, attr, cam, pids, seed: int, sample_base: int,
         chunk_of = torch.empty_like(rows)
         chunk_of[rows] = torch.arange(rows.shape[0], device=rows.device
                                       ) // cull.cluster_size
-        chunk_cull = (cull.bounds, chunk_of, cull.prio)
+        chunk_cull = (cull.bounds, cull.factor, chunk_of, cull.prio)
     budget = _PLAIN_WORKSPACE.get(pids.device.type, _PLAIN_WORKSPACE["cpu"])
     chunk = max(budget // geom.shape[0] // LANE_ALIGN, 1) * LANE_ALIGN
     for lo in range(0, n, chunk):
@@ -257,22 +269,25 @@ def _plain_root(gx, gy, gz, gr2, ox, oy, oz, dx, dy, dz, t_min):
     return torch.where(rn > t_min, rn, sq - hb)
 
 
-def _chunk_live(bx, by, bz, br2, ox, oy, oz, dx, dy, dz, t_min, t_ub):
+def _chunk_live(bx, by, bz, br2, f, ox, oy, oz, dx, dy, dz, t_min, t_ub):
     """Whether each ray (o, d) may meet a member of the chunk bounded by (bx,
-    by, bz, br2) in [t_min, t_ub], on broadcast planes: the culled kernel's
-    `chunk_live` in tensor ops (each operation rounded, no fma).  The point
-    v of the segment nearest the bound's center passes when |v|^2 <= br^2 +
-    CULL_SLACK u (|v|^2 + hb^2), u = 2^-24: the slack covers the grazing
-    hits the member test's rounding takes just outside a sphere."""
+    by, bz, br2) with slack factor f in [t_min, t_ub], on broadcast planes:
+    the culled kernel's `chunk_live` in tensor ops (each operation rounded,
+    no fma).  The point v of the segment nearest the bound's center passes
+    when |v|^2 <= br^2 + CULL_SLACK u f (|v|^2 + hb^2), u = 2^-24: the slack
+    covers the grazing hits the member test's rounding takes just outside a
+    sphere, f (br / r_min at most, 1 for a chunk of one sphere) those of a
+    member far smaller than its chunk."""
     bocx, bocy, bocz = ox - bx, oy - by, oz - bz
     bhb = bocz * dz + bocy * dy + bocx * dx
     ts = torch.minimum(torch.clamp(-bhb, min=t_min), t_ub)
     vx, vy, vz = ts * dx + bocx, ts * dy + bocy, ts * dz + bocz
     v2 = vz * vz + vy * vy + vx * vx
-    return v2 <= CULL_SLACK * 2.0 ** -24 * (bhb * bhb + v2) + br2
+    return v2 <= CULL_SLACK * 2.0 ** -24 * f * (bhb * bhb + v2) + br2
 
 
-def _live_chunks(bounds, prio, geom, prev, ox, oy, oz, dx, dy, dz, t_min):
+def _live_chunks(bounds, factor, prio, geom, prev, ox, oy, oz, dx, dy, dz,
+                 t_min):
     """[n, C] bool: the chunks whose bound each ray may hit before its t_ub
     (the nearest valid root among the priority rows and the row `prev` of
     the lane's previous winner, -1 = none): the culled kernel's phase A."""
@@ -283,7 +298,7 @@ def _live_chunks(bounds, prio, geom, prev, ox, oy, oz, dx, dy, dz, t_min):
     for g in rows:
         t = _plain_root(*g.unbind(-1), ox, oy, oz, dx, dy, dz, t_min)
         t_ub = torch.where((t > t_min) & (t < t_ub), t, t_ub)
-    return _chunk_live(*bounds.T.contiguous().unbind(0), ox[:, None],
+    return _chunk_live(*bounds.T.contiguous().unbind(0), factor, ox[:, None],
                        oy[:, None], oz[:, None], dx[:, None], dy[:, None],
                        dz[:, None], t_min, t_ub[:, None])
 
@@ -298,8 +313,8 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
     records each round's winner index, -1 for a miss or a dead path, and
     with `res2` the runner-up (the nearest valid root farther than the
     winner's): K4's recording (`kernels/sweep_record.py`), which shares
-    this body as its kernel shares K1's.  `cull` = (bounds, the scene
-    index -> chunk map, prio) runs the culled traversal on scene-ordered
+    this body as its kernel shares K1's.  `cull` = (bounds, factor, the
+    scene index -> chunk map, prio) runs the culled traversal on scene-ordered
     rows; `max_rounds` > 0 stops a lane after that many rounds."""
     where = torch.where
     gx, gy, gz, gr2 = geom.T.contiguous().unbind(0)
@@ -331,9 +346,9 @@ def _plain_chunk(geom, attr, cam, pid, seed, sample_base, spp, max_depth,
                              dz[:, None], t_min)
             tn = where(tn > t_min, tn, math.inf)
             if cull is not None:  # ---- only the members of live chunks
-                bounds, chunk_of, prio = cull
-                live_c = _live_chunks(bounds, prio, geom, prev, ox, oy, oz,
-                                      dx, dy, dz, t_min)
+                bounds, factor, chunk_of, prio = cull
+                live_c = _live_chunks(bounds, factor, prio, geom, prev, ox,
+                                      oy, oz, dx, dy, dz, t_min)
                 live = live + where(alive, live_c.sum(1).to(torch.float32),
                                     0.0)
                 tn = where(live_c[:, chunk_of], tn, math.inf)
@@ -409,8 +424,8 @@ def _k1_launcher():
 def _k1_culled_launcher():
     fn = build.load("k1_render").brt_k1_render_culled
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, i32, vp, vp, vp, vp, i32, i32, i32, vp, vp, i32, vp,
-                   vp, vp, ctypes.c_uint, ctypes.c_uint, i32, i32,
+    fn.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, i32, i32, i32, vp, vp,
+                   i32, vp, vp, vp, ctypes.c_uint, ctypes.c_uint, i32, i32,
                    ctypes.c_float, i32, i32, i32, i32, vp]
     fn.restype = i32
     return fn
@@ -438,8 +453,9 @@ def _check_cull(cull, n_spheres, device):
     size = cull.cluster_size
     if not isinstance(size, int) or size < 1:
         raise ValueError(f"cluster_size must be an int >= 1, got {size!r}")
-    _check("bounds", cull.bounds, torch.float32,
-           (-(-n_spheres // size), 4), device)
+    n_chunks = -(-n_spheres // size)
+    _check("bounds", cull.bounds, torch.float32, (n_chunks, 4), device)
+    _check("factor", cull.factor, torch.float32, (n_chunks,), device)
     _check("members", cull.members, torch.int32, (n_spheres,), device)
     _check("row_of", cull.row_of, torch.int32, (n_spheres,), device)
     _check("prio", cull.prio, torch.float32, (None, 4), device)
@@ -520,12 +536,14 @@ def render_lanes(geom, attr, cam, pids, seed: int, sample_base: int, spp: int,
                     width, height, FORWARD_TABLE_MODES.index(mode), stream)
             else:
                 n_chunks, n_prio = cull.bounds.shape[0], cull.prio.shape[0]
-                mode = forward_table_mode("k1_render_culled", device,
-                                          n_spheres + n_chunks + n_prio,
-                                          table_mode)
+                mode = forward_table_mode(
+                    "k1_render_culled", device,
+                    culled_table_rows(n_spheres, n_chunks, n_prio),
+                    table_mode)
                 err = _k1_culled_launcher()(
                     geom.data_ptr(), attr.data_ptr(), n_spheres,
-                    cull.bounds.data_ptr(), cull.members.data_ptr(),
+                    cull.bounds.data_ptr(), cull.factor.data_ptr(),
+                    cull.members.data_ptr(),
                     cull.row_of.data_ptr(),
                     cull.prio.data_ptr() if n_prio else 0, n_chunks,
                     cull.cluster_size, n_prio, cam.data_ptr(),
@@ -669,20 +687,22 @@ def balance_perm(len_map, coherent: bool = True, quant: float = 2.0):
 
 
 def render_probed(scene, camera, config: RenderConfig, frame=0,
-                  probe_spp: int = 16, plan=None):
+                  probe_spp: int = 16, plan=None, perm=None):
     """Probe -> balance_perm -> the rest of the samples on the perm.
 
     The probe renders samples [0, probe_spp) in identity layout and its
     samples count; the balanced pass renders [probe_spp, spp).  Every path
     is the plain render's; only the per-pixel summation is split in two.
-    `plan`: both passes culled (the same bits as without).  Returns (image
-    [H, W, 3], perm)."""
+    `plan`: both passes culled (the same bits as without).  `perm`: the
+    balanced pass's lane order in place of balance_perm's of the probe (the
+    same bits).  Returns (image [H, W, 3], perm)."""
     spp = config.samples_per_pixel
     probe_spp = min(probe_spp, spp)
     probe_img, len_map = render_mxu_with_len(
         scene, camera, config.replace(samples_per_pixel=probe_spp,
                                       spp_chunk=0), frame, plan=plan)
-    perm = balance_perm(len_map)
+    if perm is None:
+        perm = balance_perm(len_map)
     rest = spp - probe_spp
     if rest == 0:
         return probe_img, perm

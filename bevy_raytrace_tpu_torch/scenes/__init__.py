@@ -8,6 +8,8 @@ from bevy_raytrace_tpu_torch.scenes.builders import (
     rtiow_final_camera,
     reference_scene,
     random_scene,
+    sphereflake_scene,
+    sphereflake_camera,
 )
 
 __all__ = [
@@ -20,4 +22,6 @@ __all__ = [
     "rtiow_final_camera",
     "reference_scene",
     "random_scene",
+    "sphereflake_scene",
+    "sphereflake_camera",
 ]

@@ -2,7 +2,8 @@
 
 Mirror of `bevy_raytrace_tpu/scenes/builders.py`.  Scene randomness is
 numpy's `default_rng(seed)` drawn in the same order, so every array equals
-the JAX package's bit for bit.
+the JAX package's bit for bit.  The SPD sphereflake (`sphereflake_scene`)
+is the port's own: the reference builds no such scene.
 """
 
 from __future__ import annotations
@@ -172,3 +173,83 @@ def random_scene(n, seed=0, device=None):
         np.concatenate([[0], rng.choice(3, m, p=[0.7, 0.2, 0.1])]),
         np.concatenate([[0.0], rng.uniform(0.0, 0.5, m)]),
         np.full(n, 1.5), device=device)
+
+
+# --- The SPD sphereflake (the port's own; no reference builds it) ----------
+
+# Directions of a sphere's nine children about +z: six on the equator every
+# 60 degrees, three at 60 degrees of elevation every 120 degrees from 30.
+_FLAKE_EQUATOR_DEG = (0, 60, 120, 180, 240, 300)
+_FLAKE_ELEVATED_DEG = (30, 150, 270)
+_FLAKE_ELEVATION_DEG = 60.0
+
+
+def _flake_directions():
+    eq = [(np.cos(np.radians(a)), np.sin(np.radians(a)), 0.0)
+          for a in _FLAKE_EQUATOR_DEG]
+    el = np.radians(_FLAKE_ELEVATION_DEG)
+    up = [(np.cos(el) * np.cos(np.radians(a)),
+           np.cos(el) * np.sin(np.radians(a)), np.sin(el))
+          for a in _FLAKE_ELEVATED_DEG]
+    return np.array(eq + up)
+
+
+def _turn_from_z(axis):
+    """The least rotation that takes +z to the unit `axis` (Rodrigues'
+    formula); for an axis within 1e-9 of -z in 1 + z, the half turn about
+    +y."""
+    c = axis[2]
+    if 1.0 + c < 1e-9:
+        return np.diag([-1.0, 1.0, -1.0])
+    k = np.array([[0.0, 0.0, axis[0]], [0.0, 0.0, axis[1]],
+                  [-axis[0], -axis[1], 0.0]])  # [z x axis]_x
+    return np.eye(3) + k + k @ k / (1.0 + c)
+
+
+def sphereflake_scene(level: int = 4, device=None):
+    """Eric Haines' sphereflake from the Standard Procedural Databases (SPD,
+    IEEE CG&A 7(11), 1987; `balls.c` at size factor 4 for level 4):
+    1 + 9 + ... + 9^level mirror spheres (7,381 at level 4) over SPD's
+    ground, here a Lambertian sphere of radius 1000 whose top is SPD's
+    ground plane.
+
+    Built in SPD's z-up frame, then turned into the port's y-up one by
+    (x, y, z) -> (x, z, -y), a rigid turn.  The top sphere has center 0,
+    radius 0.5 and axis +z.  Each sphere of radius r and axis a down to
+    `level` has nine children of radius r / 3 that touch it: the child's
+    center is c + w (r + r / 3), its axis w, for w the directions
+    `_flake_directions` turned by the least rotation that takes +z to a
+    (`_turn_from_z`).  balls.c's own direction set is not in the
+    repository; this one is its shape (36 of the level-4 flake's pairs
+    overlap).  The ground comes first, then the flake level by level, each
+    level's children in their parents' order.  Every flake sphere is metal
+    with fuzz 0, albedo (0.8, 0.6, 0.26); the ground is Lambertian 0.5."""
+    if level < 0:
+        raise ValueError(f"level must be >= 0, got {level}")
+    dirs = _flake_directions()
+    centers, radii = [np.zeros(3)], [0.5]
+    todo = [(np.zeros(3), 0.5, np.array([0.0, 0.0, 1.0]))]
+    for _ in range(level):
+        nxt = []
+        for c, r, a in todo:
+            for w in dirs @ _turn_from_z(a).T:
+                nxt.append((c + w * (r + r / 3.0), r / 3.0, w))
+        centers += [t[0] for t in nxt]
+        radii += [t[1] for t in nxt]
+        todo = nxt
+    xyz = np.array(centers)
+    up = np.stack([xyz[:, 0], xyz[:, 2], -xyz[:, 1]], axis=1)  # y up
+    reg = MaterialRegistry()
+    ground = reg.lambertian("ground", (0.5, 0.5, 0.5))
+    flake = reg.metallic("flake", (0.8, 0.6, 0.26), fuzz=0.0)
+    spheres = [((0.0, -1000.5, 0.0), 1000.0, ground)]
+    spheres += [(tuple(c), r, flake) for c, r in zip(up, radii)]
+    return _build(spheres, reg, device), reg
+
+
+def sphereflake_camera(aspect, device=None):
+    """SPD's sphereflake view in the port's y-up frame: from (2.1, 1.3, 1.7)
+    z-up, i.e. (2.1, 1.7, -1.3), at the origin, 45 degrees, a pinhole."""
+    return Camera.look_at(lookfrom=(2.1, 1.7, -1.3), lookat=(0.0, 0.0, 0.0),
+                          vfov_deg=45.0, aspect=aspect, aperture=0.0,
+                          device=device)

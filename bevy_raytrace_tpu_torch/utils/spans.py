@@ -27,7 +27,9 @@ The kernels' wrappers count their launches here under dotted names
 `k2.launches_clustered`, `k3.launches`, `k3.launches_global`,
 `k4.launches`, `k4.launches_global`, `p1.launches` ... `p5.launches`,
 `v1.launches` ... `v3.launches`), K1's host side whether it built its
-sphere tables or reused them (`k1.tables_built`, `k1.tables_reused`),
+sphere tables or reused them (`k1.tables_built`, `k1.tables_reused`), a
+culling "cuda" session each cluster plan it built (`k1.plans_built`, its
+build the span `k1.plan`),
 `Camera.look_at` the path each call took (`camera.look_at_host`,
 `camera.look_at_device`) and `inverse.optimize_step` its steps
 (`inverse.steps`);

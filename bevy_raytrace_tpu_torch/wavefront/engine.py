@@ -4,8 +4,9 @@ Mirror of `bevy_raytrace_tpu/wavefront/engine.py` for the port's
 backends.  `Renderer` auto-advances the frame counter (RNG decorrelation),
 accepts a new scene/camera every frame, and for the "cuda" backend keeps the
 cost-balanced lane permutation between frames.  The "pallas" backend keeps
-the cluster plans of K2's culled traversal.  The sharded backends render
-this process's pixel stripe and gather the image over the mesh.
+the cluster plans of K2's culled traversal, and the "cuda" backend asked to
+cull (`cluster_size` > 0) those of K1's.  The sharded backends render this
+process's pixel stripe and gather the image over the mesh.
 """
 
 from __future__ import annotations
@@ -16,14 +17,40 @@ import time
 from bevy_raytrace_tpu_torch.config import RenderConfig
 from bevy_raytrace_tpu_torch.device import resolve
 from bevy_raytrace_tpu_torch.utils.metrics import synchronize
-from bevy_raytrace_tpu_torch.utils.spans import span
+from bevy_raytrace_tpu_torch.utils.spans import count, span
 
 # Samples of the probe pass that measures the cost map (they count).
 PROBE_SPP = 16
-# The "pallas" backend plans clusters for scenes of at least this many
-# spheres, and keeps at most this many plans.
+# The culling backends plan clusters for scenes of at least this many
+# spheres, and keep at most this many plans.
 MIN_CLUSTERED_SPHERES = 32
 MAX_PLANS = 8
+
+
+def culled_perm(scene, camera, config: RenderConfig, plan):
+    """The lane order of a culled "cuda" session: the cost map of a probe of
+    min(PROBE_SPP, spp) samples at seed 0 and frame 0 (its image is not
+    used), balanced (`render_lanes.balance_perm`) and reversed, so the
+    costliest lanes launch first.
+
+    Both departures from the dense session's probe frame were measured on
+    the SPD sphereflake (PERF.md, section 6): a culled frame there is about
+    two waves of blocks of widely different cost, and balance_perm's rising
+    order ended it on its costliest blocks (reversed: 0.70x the time); and
+    its time depended on the draw of the permutation, 296-321 ms over six
+    probe seeds, so a probe of the run's own seed made each run's speed its
+    own.  With seed 0 the order depends on the scene, the view and the plan
+    alone.  The dense session keeps its own probe's order."""
+    from bevy_raytrace_tpu_torch.kernels.render_lanes import (
+        balance_perm,
+        render_mxu_with_len,
+    )
+
+    probe = config.replace(
+        samples_per_pixel=min(PROBE_SPP, config.samples_per_pixel),
+        spp_chunk=0, seed=0)
+    _, len_map = render_mxu_with_len(scene, camera, probe, 0, plan=plan)
+    return balance_perm(len_map).flip(0)
 
 
 class Renderer:
@@ -44,13 +71,22 @@ class Renderer:
         CPU).
       mesh: sharded backends only: the `shard.Mesh`; None is
         `shard.make_mesh()` over the initialized process group.
-      cluster_size: "pallas" backend only: spheres per cluster of the
-        culled traversal; 0 disables culling (the brute-force loop).  The
-        plan is built from the first scene of each (sphere count,
-        cluster_size), only for scenes of at least 32 spheres, and kept
-        until `replan()`; the clusters' bounds follow the live geometry on
-        every frame, so moving spheres need no new plan.  The backend
-        renders where the scene lives and never moves it.
+      cluster_size: "pallas" and "cuda" backends: spheres per cluster of
+        the culled traversal (K2's, K1's); 0 disables culling (the
+        brute-force loop, the dense sweep).  None, the default, is the
+        backend's own: 12 for "pallas", 0 for "cuda", so a "cuda" session
+        culls only when asked.  The plan is built from the first scene of
+        each (sphere count, cluster_size), only for scenes of at least 32
+        spheres, and kept until `replan()`; the clusters' bounds follow the
+        live geometry on every frame, so moving spheres need no new plan.
+        A culled image is the unculled one bit for bit.  "cuda" builds the
+        plan inside the span `k1.plan` and counts it in `k1.plans_built`;
+        every launch of the session runs the culled K1
+        (`k1.launches_culled`): its probe frame, whose balanced pass and
+        every later frame run on the lane order of `culled_perm` (a probe
+        of a fixed seed, costliest lanes first) in place of its own
+        probe's.  The "pallas" backend renders where the scene lives and
+        never moves it.
       replan_interval: "cuda" backend only.  0 keeps the cost-map
         permutation until `replan()`; N > 0 re-probes every N frames, so the
         schedule tracks camera and scene motion.  The image never depends on
@@ -59,7 +95,9 @@ class Renderer:
 
     def __init__(self, config: RenderConfig, backend: str = "cuda",
                  device=None, replan_interval: int = 0, mesh=None,
-                 cluster_size: int = 12):
+                 cluster_size=None):
+        if cluster_size is None:  # "pallas" culls K2 unless told not to
+            cluster_size = 12 if backend == "pallas" else 0
         if cluster_size < 0:
             raise ValueError(f"cluster_size must be >= 0, got {cluster_size}")
         self.config = config
@@ -83,6 +121,7 @@ class Renderer:
             self._perm = None
             self._perm_pixels = None  # resolution the cached perm is for
             self._frames_on_perm = 0
+            self._plans = {}  # (sphere count, cluster_size) -> plan or None
             self._step = self._cuda_step
         elif backend == "pallas":
             self._plans = {}  # (sphere count, cluster_size) -> plan or None
@@ -111,23 +150,33 @@ class Renderer:
         return render_mxu_sharded(scene, camera, config, self.mesh, frame,
                                   gather=True)
 
-    def _pallas_step(self, scene, camera, config, frame):
+    def _plan(self, scene):
+        """The cluster plan for `scene`: None without culling or below
+        MIN_CLUSTERED_SPHERES spheres.  Keyed on (count, cluster_size)
+        only: membership is static, and a key on the scene's content would
+        cost a device-to-host copy of every center on every frame."""
         from bevy_raytrace_tpu_torch.kernels.clusters import cluster_scene
-        from bevy_raytrace_tpu_torch.kernels.record import render_pallas
 
-        # Keyed on (count, cluster_size) only: membership is static, and a
-        # key on the scene's content would cost a device-to-host copy of
-        # every center on every frame.
         key = (scene.count, self.cluster_size)
         if key not in self._plans:
-            plan = (cluster_scene(scene, cluster_size=self.cluster_size)
-                    if self.cluster_size
-                    and scene.count >= MIN_CLUSTERED_SPHERES else None)
+            plan = None
+            if self.cluster_size and scene.count >= MIN_CLUSTERED_SPHERES:
+                if self.backend == "cuda":
+                    with span("k1.plan"):
+                        plan = cluster_scene(scene, self.cluster_size)
+                    count("k1.plans_built")
+                else:
+                    plan = cluster_scene(scene, self.cluster_size)
             if len(self._plans) >= MAX_PLANS:
                 self._plans.pop(next(iter(self._plans)))
             self._plans[key] = plan
+        return self._plans[key]
+
+    def _pallas_step(self, scene, camera, config, frame):
+        from bevy_raytrace_tpu_torch.kernels.record import render_pallas
+
         return render_pallas(scene, camera, config, frame,
-                             clusters=self._plans[key])
+                             clusters=self._plan(scene))
 
     def _cuda_step(self, scene, camera, config, frame):
         from bevy_raytrace_tpu_torch.kernels.render_lanes import (
@@ -141,24 +190,32 @@ class Renderer:
                 self.replan_interval > 0
                 and self._frames_on_perm >= self.replan_interval):
             self._perm = None
+        plan = self._plan(scene) if self.cluster_size else None
         if self._perm is not None:
             self._frames_on_perm += 1
-            return render_mxu(scene, camera, config, frame, perm=self._perm)
-        img, self._perm = render_probed(scene, camera, config, frame,
-                                        PROBE_SPP)
+            return render_mxu(scene, camera, config, frame, perm=self._perm,
+                              plan=plan)
+        if plan is None:
+            img, self._perm = render_probed(scene, camera, config, frame,
+                                            PROBE_SPP)
+        else:
+            img, self._perm = render_probed(
+                scene, camera, config, frame, PROBE_SPP, plan=plan,
+                perm=culled_perm(scene, camera, config, plan))
         self._perm_pixels = config.num_pixels
         self._frames_on_perm = 1
         return img
 
     def replan(self):
         """Drop cached scheduling state: the "cuda" backend's permutation
-        (the next frame re-probes) and the "pallas" backend's cluster plans
-        (the next frame plans from its scene).  Results never depend on
-        either; after large motion this restores speed."""
+        (the next frame re-probes) and cluster plans, and the "pallas"
+        backend's cluster plans (the next frame plans from its scene).
+        Results never depend on either; after large motion this restores
+        speed."""
         if self.backend == "cuda":
             self._perm = None
             self._perm_pixels = None
-        elif self.backend == "pallas":
+        if self.backend in ("cuda", "pallas"):
             self._plans.clear()
 
     def warmup(self, scene, camera):

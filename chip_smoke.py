@@ -2305,8 +2305,8 @@ def culled_phase(dev, smi, flagship, reference, lane_args):
     check_entry = {
         "shape": "flagship stripe, 16384 pixels x256 depth 8, culled L=12",
         "mode": k1.forward_table_mode(
-            "k1_render_culled", dev,
-            flag_scene.count + flag_plan.n_clusters + len(flag_plan.prio)),
+            "k1_render_culled", dev, k1.culled_table_rows(
+                flag_scene.count, flag_plan.n_clusters, len(flag_plan.prio))),
         "max_abs_err": kernel_vs["max_abs_err"], "ms": stripe_ms,
         "plain_ms": plain_ms, "rounds": s_rounds, "live_chunks": s_live,
         **culled_bound(flag_scene.count, flag_plan.n_clusters, size,

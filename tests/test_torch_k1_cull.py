@@ -30,7 +30,11 @@ from bevy_raytrace_tpu_torch.interop import (
     scene_from_reference,
 )
 from bevy_raytrace_tpu_torch.kernels import render_lanes as k1
-from bevy_raytrace_tpu_torch.kernels.clusters import ClusterPlan, cluster_scene
+from bevy_raytrace_tpu_torch.kernels.clusters import (
+    ClusterPlan,
+    _bounding_spheres,
+    cluster_scene,
+)
 from bevy_raytrace_tpu_torch.kernels.common import _plain_camera, _rsqrt_guard
 from bevy_raytrace_tpu_torch.parity import COMPILED, compare
 from bevy_raytrace_tpu_torch.scenes import random_scene
@@ -187,8 +191,9 @@ def test_live_count_of_one_chunk_is_the_rays_that_meet_its_bound():
     """Config2's four small spheres, one chunk, one bounce: a lane's count
     is how many of its camera rays pass the chunk test, checked in float64:
     the point of [t_min, inf) nearest the bound's center within br^2 plus
-    the slack.  (A clamp at t_ub changes nothing here: t_ub is the root of
-    a sphere inside the bound, so that point passes too.)"""
+    the slack, scaled by the chunk's factor.  (A clamp at t_ub changes
+    nothing here: t_ub is the root of a sphere inside the bound, so that
+    point passes too.)"""
     base, _ = tsc.baseline_config2_scene()
     keep = base.radii < 10.0  # drop the ground: a bound the camera is out of
     scene = dataclasses.replace(base, centers=base.centers[keep],
@@ -198,7 +203,8 @@ def test_live_count_of_one_chunk_is_the_rays_that_meet_its_bound():
     cam = tsc.rtiow_final_camera(cfg.aspect)  # they fill part of its view
     plan = cluster_scene(scene, cluster_size=scene.count)
     _, ln, live = _lanes(scene, cam, cfg, plan)
-    (b,) = k1._scene_tables(scene, plan)[2].bounds.double()
+    cull = k1._scene_tables(scene, plan)[2]
+    (b,), (f,) = cull.bounds.double(), cull.factor.double()
     pid = torch.arange(k1.lane_pad(cfg.num_pixels), dtype=torch.int64)
     meets = torch.zeros(pid.shape, dtype=torch.float32)
     for s in range(cfg.samples_per_pixel):
@@ -208,7 +214,7 @@ def test_live_count_of_one_chunk_is_the_rays_that_meet_its_bound():
         d = torch.stack([dx, dy, dz])
         hb = (oc * d).sum(0)
         v2 = ((oc + torch.clamp(-hb, min=cfg.t_min) * d) ** 2).sum(0)
-        slack = k1.CULL_SLACK * 2.0 ** -24 * (v2 + hb * hb)
+        slack = k1.CULL_SLACK * 2.0 ** -24 * f * (v2 + hb * hb)
         meets += (v2 <= b[3] + slack).float()
     assert torch.equal(ln, torch.full_like(ln, cfg.samples_per_pixel))
     assert torch.equal(live, meets)
@@ -310,15 +316,15 @@ def _member_hit(g, o, d, arith):
     return _fma(hb, hb, -cq) > 0
 
 
-def _chunk_live_fma(b, o, d, t_min, slack):
-    """csrc/k1_render.cu's chunk_live with its fmas (t_ub none)."""
+def _chunk_live_fma(b, f, o, d, t_min, slack):
+    """csrc/k1_render.cu's chunk_live with its fmas (t_ub none), for bounds
+    b and factors f, its slack `slack` u."""
     ob = o - b[:, :3]
     hb = _fma(ob[:, 0], d[:, 0], _fma(ob[:, 1], d[:, 1], ob[:, 2] * d[:, 2]))
     ts = torch.clamp(-hb, min=t_min)
     v = [_fma(ts, d[:, i], ob[:, i]) for i in range(3)]
     v2 = _fma(v[0], v[0], _fma(v[1], v[1], v[2] * v[2]))
-    return v2 <= _fma(torch.full_like(v2, slack * 2.0 ** -24),
-                      _fma(hb, hb, v2), b[:, 3])
+    return v2 <= _fma(slack * 2.0 ** -24 * f, _fma(hb, hb, v2), b[:, 3])
 
 
 @pytest.mark.parametrize("arith", ["twin", "fma"])
@@ -332,16 +338,19 @@ def test_grazing_hits_keep_their_chunk_live(arith, size, monkeypatch):
     rounding calls some of these misses hits; every ray it calls a hit must
     have its sphere's chunk live under the chunk test, in the twin's
     arithmetic (every operation rounded) and in the kernel's (fmas).
-    Without the slack (slack 0: the bare closest-point test) the chunk
+    Without the slack (slack 0 on the bound before the factor widens it:
+    the bare closest-point test) the chunk
     test culls some of them: the rays reach the fault the slack repairs.
     A quarter of the slack still covers them (the derivation at the
     kernel's chunk_live allows for worse rounding than these rays meet)."""
     scene = random_scene(2000, seed=3)
-    geom, _, cull = k1._scene_tables(scene, cluster_scene(scene, size))
+    plan = cluster_scene(scene, size)
+    geom, _, cull = k1._scene_tables(scene, plan)
     rng = np.random.default_rng(0)
     small = np.flatnonzero(geom[:, 3].numpy() < 1.0)
     row = np.repeat(small, 400)
     b = cull.bounds[row // size]  # chunk c holds rows [c L, (c + 1) L)
+    f = cull.factor[row // size]
     c = geom[row, :3].double().numpy()
     r = np.sqrt(geom[row, 3].double().numpy())
     origin = np.array([13.0, 2.0, 3.0])
@@ -360,11 +369,15 @@ def test_grazing_hits_keep_their_chunk_live(arith, size, monkeypatch):
 
     slack = k1.CULL_SLACK
 
+    _, br = _bounding_spheres(scene.centers, scene.radii, plan)
+    bare = torch.cat([b[:, :3], (br * br)[row // size, None]], dim=1)
+
     def live(s):
+        b = bare if s == 0 else cull.bounds[row // size]
         if arith == "fma":
-            return _chunk_live_fma(b, o, d, 1e-3, s)
+            return _chunk_live_fma(b, f, o, d, 1e-3, s)
         monkeypatch.setattr(k1, "CULL_SLACK", s)
-        return k1._chunk_live(*b.unbind(1), *o.unbind(1), *d.unbind(1),
+        return k1._chunk_live(*b.unbind(1), f, *o.unbind(1), *d.unbind(1),
                               1e-3, torch.tensor(k1._NO_BOUND))
 
     assert int(hit.sum()) > 10_000  # grazing hits, most just outside
@@ -372,3 +385,68 @@ def test_grazing_hits_keep_their_chunk_live(arith, size, monkeypatch):
     assert int((hit & ~live(slack)).sum()) == 0
     # and with room: a quarter of the slack keeps them all too
     assert int((hit & ~live(slack // 4)).sum()) == 0
+
+
+@pytest.mark.parametrize("arith", ["twin", "fma"])
+def test_grazing_hits_at_small_members_need_the_chunk_factor(arith):
+    """Chunks of four small spheres on a circle of radius 0.1 about the
+    chunk's center, in the plane that faces the eye, each 50-200x smaller
+    than its chunk's bound, so it lies on the bound's rim as the eye sees
+    it; from (13, 2, 3), rays aimed past each member on the rim side, up to
+    0.02 outside it.  Every ray the member test's rounding calls a hit keeps
+    its chunk live under the chunk test with the chunk's factor, in the
+    twin's arithmetic and in the kernel's; with a factor of 1 and the bound
+    not widened by it (the slack derived for cluster size 1 alone) the test
+    culls some of them."""
+    rng = np.random.default_rng(7)
+    origin = np.array([13.0, 2.0, 3.0])
+    n_chunks, rho = 60, 0.1
+    u = rng.normal(size=(n_chunks, 3)) * 0.1 - origin / np.linalg.norm(origin)
+    u /= np.linalg.norm(u, axis=1)[:, None]
+    e1 = np.cross(u, [0.0, 1.0, 0.0])
+    e1 /= np.linalg.norm(e1, axis=1)[:, None]
+    e2 = np.cross(u, e1)
+    mid = origin + u * rng.uniform(10.0, 16.0, (n_chunks, 1))
+    ang = rng.uniform(0, 2 * np.pi, (n_chunks, 1)) + np.arange(4) * np.pi / 2
+    centers = (mid[:, None] + rho * (np.cos(ang)[..., None] * e1[:, None]
+                                     + np.sin(ang)[..., None] * e2[:, None])
+               ).reshape(-1, 3)
+    radii = rho / rng.uniform(50.0, 200.0, n_chunks * 4)
+    n = radii.shape[0]
+    scene = dataclasses.replace(
+        random_scene(n, seed=0), centers=torch.tensor(centers).float(),
+        radii=torch.tensor(radii).float())
+    plan = ClusterPlan(perm=np.arange(n, dtype=np.int32),
+                       member_mask=np.ones((n_chunks, 4), np.float32),
+                       prio=np.zeros(1, np.int32), cluster_size=4,
+                       n_clusters=n_chunks)
+    geom, _, cull = k1._scene_tables(scene, plan)
+    _, br = _bounding_spheres(scene.centers, scene.radii, plan)
+    ratio = br.repeat_interleave(4) / scene.radii
+    assert 50 <= float(ratio.min()) and float(ratio.max()) <= 210
+    row = np.repeat(np.arange(n), 200)
+    c = geom[row, :3].double().numpy()
+    r = np.sqrt(geom[row, 3].double().numpy())
+    w = c - origin
+    w /= np.linalg.norm(w, axis=1)[:, None]
+    side = c - cull.bounds[row // 4, :3].double().numpy()
+    side -= (side * w).sum(1)[:, None] * w
+    side /= np.linalg.norm(side, axis=1)[:, None]
+    aim = c + side * (r + rng.uniform(0.0, 0.02, r.shape))[:, None]
+    t = torch.from_numpy(aim - origin).float()
+    d = t * _rsqrt_guard((t * t).sum(1, keepdim=True))
+    o = torch.tensor(origin, dtype=torch.float32).expand_as(d)
+    hit = _member_hit(geom[row], o, d, arith)
+    f = cull.factor[row // 4]
+    bare = torch.cat([cull.bounds[row // 4, :3], (br * br)[row // 4, None]],
+                     dim=1)
+
+    def live(b, f):
+        if arith == "fma":
+            return _chunk_live_fma(b, f, o, d, 1e-3, k1.CULL_SLACK)
+        return k1._chunk_live(*b.unbind(1), f, *o.unbind(1), *d.unbind(1),
+                              1e-3, torch.tensor(k1._NO_BOUND))
+
+    assert float(f.min()) >= 50 and int(hit.sum()) > 1000
+    assert int((hit & ~live(cull.bounds[row // 4], f)).sum()) == 0
+    assert int((hit & ~live(bare, torch.ones_like(f))).sum()) >= 10
